@@ -1,0 +1,651 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (opticalimageprocessor_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+or, to see where one forward's device time goes (torch.profiler at 32768
+and 65536 lines: device ms per class, busy time as the union of all device
+intervals, idle share; no other phase runs):
+
+    python3 chip_smoke.py --profile
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. the card's name and power limit, torch/CUDA versions, and the build of
+   the four hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
+2. each kernel against its plain PyTorch version on the card, at the
+   shapes the scene pipeline gives it, with its stated tolerance, and
+   both timed with CUDA events;
+3. the CLI entry (``cli.main(["scene", ...])``) on a 16384-line scene of
+   RAW files built like bench.py's synthesis, checking the outputs, the
+   recovered band shifts and stt translation, and that the stitched left
+   half is RRC(PAN1) byte for byte -- with every kernel's launch count
+   read around this run;
+4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
+   path against the plain path with pinned estimates, then timed.
+
+The last two lines of standard output are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+W = 12288            # PAN pixels per line (camera geometry)
+BW = W // 4          # MSS band pixels per line
+FOLD_COLS = 200
+SEED = 0
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def rrc_oracle(src: np.ndarray, k: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """numpy float64 RRC with the reference's cast (imageop.h:129-138):
+    trunc toward zero through int32, low 16 bits, |v| >= 2^31 -> 0."""
+    v = k[..., None, :] * src.astype(np.float64) + b[..., None, :]
+    t = np.trunc(v)
+    bad = ~(np.abs(v) < 2147483648.0)
+    i = np.where(bad, 0.0, t).astype(np.int64)
+    return (i & 0xFFFF).astype(np.uint16)
+
+
+def time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def dn_diff(a, b):
+    import torch
+
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return int(d.max()), float((d > 0).double().mean())
+
+
+def rand_params(rng, *shape):
+    k = 0.98 + 0.04 * rng.random(shape)
+    b = rng.normal(0, 20, shape)
+    return k, b
+
+
+def synth_scene(torch, rng, lines_pan, dev, dy=2):
+    """bench.py:217-233's synthesis with the port's upsample4_f32: PAN1 =
+    x4 cubic upsample of a noise scene, PAN2 = PAN1 rolled by (dy, dx -3)
+    so its left 200 columns see PAN1's right edge, band b = the scene
+    rolled by (b mod 2, b - 1).  bench.py's dy is +2; at that offset (half
+    a scene pixel) the upsampled content's correlation peak is flat-topped
+    and the 5x5 centroid reads ~1.66 in the JAX package and the port
+    alike, so the run that checks the recovered translation uses +3."""
+    from opticalimageprocessor_tpu_torch.ops.resample import upsample4_f32
+
+    scene = torch.from_numpy(
+        rng.integers(2000, 42000, (lines_pan // 4, BW), dtype=np.int32)
+    ).to(dev)
+    up = torch.clamp(torch.round(upsample4_f32(scene)), 0, 65535).to(
+        torch.int32)
+    pan1 = up.to(torch.uint16)
+    pan2 = torch.roll(up, (dy, FOLD_COLS - 3 - W), (0, 1)).to(torch.uint16)
+    del up
+    mss = torch.stack(
+        [torch.roll(scene, (b % 2, b - 1), (0, 1)) for b in range(4)]
+    ).to(torch.uint16)
+    return pan1, pan2, mss
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernels(dev, records):
+    import torch
+
+    from opticalimageprocessor_tpu_torch.ops import phasecorr, rrc
+    from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    rng = np.random.default_rng(SEED)
+
+    # (a) RRC: all 65536 values x 9 (k, b) cases, and a random strip
+    cases = [(1.0, 0.0), (0.5, 0.5), (2.0, -65536.0),
+             (0.9987654321, 12.3456789), (1.0123456789, -17.25),
+             (3.14159265358979, -100000.5), (-0.75, 30000.0),
+             (1e-9, 0.999999999), (70000.0, 0.0)]
+    src = np.tile(np.arange(65536, dtype=np.uint16), (len(cases), 1, 1))
+    k = np.array([[c[0]] * 65536 for c in cases])
+    b = np.array([[c[1]] * 65536 for c in cases])
+    want = rrc_oracle(src, k, b)
+    args = [torch.from_numpy(x).to(dev) for x in (src, k, b)]
+    got = rrc.rrc_apply(*args)
+    plain = rrc._rrc_plain(*args)
+    torch.cuda.synchronize()
+    check(np.array_equal(got.cpu().numpy(), want), "rrc sweep vs oracle")
+    check(np.array_equal(plain.cpu().numpy(), want), "rrc plain vs oracle")
+    strip = rng.integers(0, 65536, (2048, W), dtype=np.uint16)
+    ks, bs = rand_params(rng, W)
+    args = [torch.from_numpy(x).to(dev) for x in (strip, ks, bs)]
+    got = rrc.rrc_apply(*args).cpu().numpy()
+    check(np.array_equal(got, rrc_oracle(strip, ks, bs)), "rrc strip")
+    # main-path shape: the 4 MSS bands of a 32768-line scene
+    mss = torch.from_numpy(
+        rng.integers(0, 65536, (4, 8192, BW), dtype=np.uint16)).to(dev)
+    km, bm = (torch.from_numpy(x).to(dev) for x in rand_params(rng, 4, BW))
+    dmax = dn_diff(rrc.rrc_apply(mss, km, bm), rrc._rrc_plain(mss, km, bm))[0]
+    check(dmax == 0, "rrc bands vs plain")
+    records["rrc"] = dict(
+        max_abs_err=float(dmax),
+        ms=time_ms(lambda: rrc.rrc_apply(mss, km, bm), 20),
+        plain_ms=time_ms(lambda: rrc._rrc_plain(mss, km, bm), 5),
+        shape="(4, 8192, 3072) u16",
+    )
+    del mss
+    say(f"[a] rrc: byte-exact; {records['rrc']}")
+
+    # (b) windowed cross-power: 2 tiles x 4 bands at the registration shapes
+    M, N, m, n, win = 16000, 1228, 4000, 307, 64
+    keep = N // 2 + 1
+    base = torch.from_numpy(
+        rng.integers(2000, 42000, (2, m, n), dtype=np.int32)).to(dev)
+    pan = resample.upsample4_f32(base)
+    bands = torch.stack(
+        [torch.roll(base, (b % 2, b - 1), (1, 2)) for b in range(4)], dim=1)
+    fpan = phasecorr.rfft2_padded(pan, (M, N))
+    fband = phasecorr.band_full_spectrum_small(bands)
+    hr = phasecorr.filter_response(m, 4, dev)
+    hc = phasecorr.filter_response(n, 4, dev)[:keep]
+    ex_c, ex_s = phasecorr.eval_consts(N, keep, win, False, dev)
+    kargs = (fpan, fband, hr, hc, ex_c, ex_s)
+    dr_k, di_k = pcc._crosspower_cuda(*kargs)
+    dr_p, di_p = pcc._crosspower_plain(*kargs)
+    torch.cuda.synchronize()
+    corr_k = phasecorr.contract_rows(dr_k, di_k, M, N, win)
+    corr_p = phasecorr.contract_rows(dr_p, di_p, M, N, win)
+    peak_k = phasecorr._centroid_on_window(corr_k, win, win)
+    peak_p = phasecorr._centroid_on_window(corr_p, win, win)
+    d_shift = max(float((peak_k[i] - peak_p[i]).abs().max()) for i in (0, 1))
+    d_resp = float((peak_k[2] - peak_p[2]).abs().max())
+    # every (tile, band, ky, window column) of the kernel's output, real and
+    # imaginary, and the whole contracted 129 x 129 window, relative to the
+    # plain version's largest magnitude: a column block or a share of the
+    # kx sum that the kernel got wrong shows here even away from the peak
+    # (one zeroed window column, or kx >= 512 left out of the sum, reads
+    # 0.12-0.17 on a 1-tile 4000 x 1228 case; the kernel reads ~2e-6)
+    surf = max(float((k - p).abs().max() / p.abs().max())
+               for k, p in ((dr_k, dr_p), (di_k, di_p)))
+    window = float((corr_k - corr_p).abs().max() / corr_p.abs().max())
+    say(f"[b] crosspower: max |d shift| {d_shift:.3g} px, |d response| "
+        f"{d_resp:.3g}, surface rel err {surf:.3g}, window rel err "
+        f"{window:.3g}; dx {peak_k[0].tolist()} dy {peak_k[1].tolist()} "
+        f"resp {peak_k[2].tolist()}")
+    check(d_shift <= 1e-3 and d_resp <= 1e-4, "crosspower peaks vs plain")
+    check(surf <= 1e-4 and window <= 1e-4,
+          f"crosspower surface {surf:.3g} / window {window:.3g} vs plain "
+          "above 1e-4")
+    check(bool((peak_k[2] >= 0.4).all()), "crosspower responses below 0.4")
+    records["crosspower"] = dict(
+        max_abs_err=d_shift, surface_rel_err=surf, window_rel_err=window,
+        ms=time_ms(lambda: pcc._crosspower_cuda(*kargs), 5),
+        plain_ms=time_ms(lambda: pcc._crosspower_plain(*kargs), 2),
+        shape="T=2 tiles x 4 bands, M=16000 keep=615 m=4000 n=307 win=64",
+    )
+    del fpan, fband, dr_k, di_k, dr_p, di_p, pan, bands
+    say(f"[b] {records['crosspower']}")
+
+    # (c) band remap: one 8192 x 3072 band, pinned coefficients
+    band = torch.from_numpy(
+        rng.integers(0, 65536, (8192, BW), dtype=np.uint16)).to(dev)
+    cx = torch.tensor([3.7, -2.1e-4], dtype=torch.float32, device=dev)
+    cy = torch.tensor([-1.9, 6.5e-4, -3.0e-7], dtype=torch.float32,
+                      device=dev)
+    kw = dict(row_bound=3, block=128, halo=16)
+    got = resample._remap_band_cuda(band, cx, cy, **kw)
+    plain = resample._remap_band_plain(band, cx, cy, **kw)
+    torch.cuda.synchronize()
+    dmax, share = dn_diff(got, plain)
+    say(f"[c] remap_band: max {dmax} DN, {share:.4%} of pixels differ")
+    check(dmax <= 1 and share <= 0.01, "remap_band vs plain")
+    records["remap_band"] = dict(
+        max_abs_err=float(dmax),
+        ms=time_ms(lambda: resample._remap_band_cuda(band, cx, cy, **kw), 20),
+        plain_ms=time_ms(
+            lambda: resample._remap_band_plain(band, cx, cy, **kw), 5),
+        shape="(8192, 3072) u16, row_bound 3, block 128, halo 16",
+    )
+    del band
+    say(f"[c] {records['remap_band']}")
+
+    # (d) stitch tail: 4096 x 12288, pinned and clamp-edge translations
+    rows = 4096
+    p1 = torch.from_numpy(
+        rng.integers(0, 65536, (rows, W), dtype=np.uint16)).to(dev)
+    p2 = torch.from_numpy(
+        rng.integers(0, 65536, (rows, W), dtype=np.uint16)).to(dev)
+    k1, b1, k2, b2 = (torch.from_numpy(x).to(dev)
+                      for x in (*rand_params(rng, W), *rand_params(rng, W)))
+    fold = FOLD_COLS // 2
+    skw = dict(block=128, halo=16, want_prestt=False)
+    worst = 0
+    for dx, dy in ((-2.7, 1.6), (14.0, 6.0), (-14.0, -6.0), (14.0, -6.0)):
+        a = (p1, p2, k1, b1, k2, b2, dx, dy, fold)
+        got = resample._stitch_tail_cuda(*a, **skw)
+        plain = resample._stitch_tail_plain(*a, **skw)
+        torch.cuda.synchronize()
+        left = W - fold
+        check(bool((got[:, :left].to(torch.int32)
+                    == plain[:, :left].to(torch.int32)).all()),
+              f"stitch left half not byte-exact at {(dx, dy)}")
+        dmax, share = dn_diff(got[:, left:], plain[:, left:])
+        say(f"[d] stitch_tail dx {dx} dy {dy}: left exact, right max "
+            f"{dmax} DN on {share:.4%}")
+        check(dmax <= 1 and share <= 0.01, "stitch right half vs plain")
+        worst = max(worst, dmax)
+    a = (p1, p2, k1, b1, k2, b2, -2.7, 1.6, fold)
+    records["stitch_tail"] = dict(
+        max_abs_err=float(worst),
+        ms=time_ms(lambda: resample._stitch_tail_cuda(*a, **skw), 20),
+        plain_ms=time_ms(lambda: resample._stitch_tail_plain(*a, **skw), 3),
+        shape="(4096, 12288) u16 pair -> (4096, 24176)",
+    )
+    say(f"[d] {records['stitch_tail']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the CLI on RAW files
+# ---------------------------------------------------------------------------
+
+def _write_csv(path, k, b):
+    with open(path, "w") as f:
+        f.write(f"1\n{k.shape[0]}\n0\n")
+        for kk, bb in zip(k, b):
+            f.write(f"{float(kk)!r} , {float(bb)!r}\n")
+
+
+def _tiff_shape(path):
+    """(width, height, samples) from a little-endian classic or BigTIFF."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(16)
+        big = struct.unpack("<H", head[2:4])[0] == 43
+        off = struct.unpack("<Q", head[8:16])[0] if big else \
+            struct.unpack("<I", head[4:8])[0]
+        f.seek(off)
+        n = struct.unpack("<Q" if big else "<H", f.read(8 if big else 2))[0]
+        tags = {}
+        for _ in range(n):
+            e = f.read(20 if big else 12)
+            tag, typ = struct.unpack("<HH", e[:4])
+            val = e[12:] if big else e[8:]
+            fmt = {3: "<H", 4: "<I", 16: "<Q"}.get(typ)
+            if fmt:
+                tags[tag] = struct.unpack(fmt, val[:struct.calcsize(fmt)])[0]
+    return tags.get(256), tags.get(257), tags.get(277, 1)
+
+
+def phase_cli(dev, tmp: Path, lines: int = 16384):
+    import torch
+
+    from opticalimageprocessor_tpu_torch import _build, cli
+
+    rng = np.random.default_rng(SEED + 1)
+    pan1, pan2, mss = synth_scene(torch, rng, lines, dev, dy=3)
+    files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS")}
+    pan1_h = pan1.cpu().numpy()
+    pan1_h.tofile(files["PAN1"])
+    pan2.cpu().numpy().tofile(files["PAN2"])
+    mss.cpu().numpy().transpose(1, 0, 2).tofile(files["MSS"])
+    del pan1, pan2, mss
+    k1, b1 = rand_params(rng, W)
+    csv = {"pan1": (k1, b1), "pan2": rand_params(rng, W)}
+    for b in range(1, 5):
+        csv[f"msb{b}"] = rand_params(rng, BW)
+    argv = ["scene", "--pan1", str(files["PAN1"]), "--pan2",
+            str(files["PAN2"]), "--mss", str(files["MSS"]), "-c",
+            str(FOLD_COLS), "--out-dir", str(tmp), "-o",
+            str(tmp / "STITCHED.RAW"), "--device", dev.type]
+    for name, (k, b) in csv.items():
+        _write_csv(tmp / f"{name}.csv", k, b)
+        argv += [f"--rrc-{name}", str(tmp / f"{name}.csv")]
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    say(f"[cli] scene rc {rc} in {secs:.3f} s; launches {launches}")
+    check(rc == 0, f"cli scene exit code {rc}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main path never launched: {launches}")
+
+    aligned = list(tmp.glob("*.ALIGNED.TIFF"))
+    check(len(aligned) == 1, f"ALIGNED.TIFF missing: {aligned}")
+    shape = _tiff_shape(aligned[0])
+    check(shape == (BW, lines // 4, 4), f"aligned TIFF shape {shape}")
+    out_w = 2 * (W - FOLD_COLS // 2)
+    st = np.fromfile(tmp / "STITCHED.RAW", dtype="<u2")
+    check(st.size == lines * out_w, f"stitched size {st.size}")
+    st = st.reshape(lines, out_w)
+    left = W - FOLD_COLS // 2
+    for a in range(0, lines, 2048):
+        check(np.array_equal(st[a:a + 2048, :left],
+                             rrc_oracle(pan1_h[a:a + 2048, :left],
+                                        k1[:left], b1[:left])),
+              "stitched left half != RRC(PAN1)")
+    say("[cli] stitched left half == RRC(PAN1) byte for byte")
+
+    log = Path(os.environ["LOGFILE"]).read_text()
+    cx0 = [float(x) for x in re.findall(r"deltaX coeff: .*\[0\] (\S+)", log)]
+    cy0 = [float(x) for x in re.findall(r"deltaY coeff: .*\[0\] (\S+)", log)]
+    stt = re.findall(r"everage value: dx: (\S+), dy: (\S+)", log)
+    say(f"[cli] cx0 {cx0} cy0 {cy0} stt {stt}")
+    check(len(cx0) == 4 and len(cy0) == 4 and len(stt) == 1, "log parse")
+    for b in range(4):
+        check(abs(cx0[b] - 4 * (b - 1)) < 0.3, f"band {b + 1} cx0 {cx0[b]}")
+        check(abs(cy0[b] - 4 * (b % 2)) < 0.3, f"band {b + 1} cy0 {cy0[b]}")
+    dx, dy = (float(v) for v in stt[0])
+    check(abs(dx + 3) < 0.2 and abs(dy - 3) < 0.2, f"stt {dx}, {dy}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the resident pipeline at 32768 lines
+# ---------------------------------------------------------------------------
+
+def plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx, raw_dy):
+    """ScenePipeline.transform through the kernels' plain versions."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.ops import resample, rrc
+
+    mss_c = rrc._rrc_plain(mss, pipe.mss_k, pipe.mss_b)
+    aligned = torch.stack(
+        [resample._remap_band_plain(
+            mss_c[i], cx[i], cy[i], pipe.row_bound, pipe.col_block,
+            pipe.col_halo).to(torch.int32) for i in range(4)], dim=-1)
+    dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
+    stitched = resample._stitch_tail_plain(
+        pan1, pan2, pipe.pan1_k, pipe.pan1_b, pipe.pan2_k, pipe.pan2_b,
+        float(np.float32(dxs)), float(np.float32(dys)), pipe.fold,
+        pipe.col_block, pipe.col_halo, False)
+    return aligned, stitched
+
+
+def phase_pipeline(dev, power, lines: int = 32768):
+    import torch
+
+    from opticalimageprocessor_tpu_torch.models.device_pipeline import (
+        ScenePipeline,
+        check_registration_valid,
+        check_stt_valid,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    pan1, pan2, mss = synth_scene(torch, rng, lines, dev)
+    pipe = ScenePipeline(
+        rand_params(rng, W), rand_params(rng, W), rand_params(rng, 4, BW),
+        fold=FOLD_COLS // 2, overlap_cols=FOLD_COLS,
+    ).to(dev)
+    cx, cy, n_valid, raw_dx, raw_dy, n_stt = pipe.estimate(pan1, pan2, mss)
+    check_registration_valid(n_valid.cpu())
+    check_stt_valid(n_stt)
+    say(f"[pipe] n_valid {n_valid.tolist()} n_stt {int(n_stt)} "
+        f"cx0 {cx[:, 0].tolist()} cy0 {cy[:, 0].tolist()} "
+        f"stt ({float(raw_dx):.5f}, {float(raw_dy):.5f})")
+    aligned, stitched = pipe.transform(pan1, pan2, mss, cx, cy, raw_dx,
+                                       raw_dy)
+    al_p, st_p = plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx,
+                                 raw_dy)
+    torch.cuda.synchronize()
+    dmax, share = dn_diff(aligned, al_p)
+    say(f"[pipe] aligned kernel vs plain: max {dmax} DN on {share:.4%}")
+    check(dmax <= 1 and share <= 0.01, "aligned vs plain")
+    left = W - pipe.fold
+    check(bool((stitched[:, :left].to(torch.int32)
+                == st_p[:, :left].to(torch.int32)).all()),
+          "pipeline stitched left half not byte-exact")
+    dmax, share = dn_diff(stitched[:, left:], st_p[:, left:])
+    say(f"[pipe] stitched right half kernel vs plain: max {dmax} DN on "
+        f"{share:.4%}")
+    check(dmax <= 1 and share <= 0.01, "stitched vs plain")
+    del al_p, st_p, aligned, stitched
+
+    def step():
+        out = pipe(pan1, pan2, mss)
+        return int(out[0][0, 0, 0])           # forced readback
+
+    def estimate():
+        return int(pipe.estimate(pan1, pan2, mss)[2][0])
+
+    est = pipe.estimate(pan1, pan2, mss)
+
+    def transform():
+        out = pipe.transform(pan1, pan2, mss, *est[:2], *est[3:5])
+        return int(out[0][0, 0, 0])
+
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    ms = time_ms(step, 3)
+    ms_est = time_ms(estimate, 3)
+    ms_tr = time_ms(transform, 3)
+    px = 2 * lines * W + 4 * (lines // 4) * BW
+    res = dict(lines=lines, ms=ms, estimate_ms=ms_est, transform_ms=ms_tr,
+               gpix_per_s=px / (ms * 1e-3) / 1e9, card=power,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(f"[pipe] {json.dumps(res)}")
+
+
+# ---------------------------------------------------------------------------
+# --profile: where the device time of one forward goes
+# ---------------------------------------------------------------------------
+
+_KERNEL_CLASSES = (
+    ("crosspower_kernel", "kernel (b) crosspower"),
+    ("stitch_tail_kernel", "kernel (d) stitch_tail"),
+    ("remap_band_kernel", "kernel (c) remap_band"),
+    ("rrc_kernel", "kernel (a) rrc"),
+)
+
+
+def _device_class(name: str) -> str:
+    for key, label in _KERNEL_CLASSES:
+        if key in name:
+            return label
+    low = name.lower()
+    if "memcpy" in low:
+        return "memcpy"
+    if "memset" in low:
+        return "memset"
+    if "fft" in low:
+        return "cuFFT"
+    if any(k in low for k in ("gemm", "gemv", "xmma", "splitkreduce")):
+        return "cuBLAS"
+    return "other (copies, cat, casts, elementwise)"
+
+
+def _union_ms(intervals) -> float:
+    """Total length of the union of (start, end) intervals, in ms (us in)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def phase_profile(dev, power, lines: int) -> dict:
+    """One ``ScenePipeline.forward`` under torch.profiler after warm-up:
+    device time per class, the union of all device intervals (busy), and
+    the idle share against the forward's wall time, profiled (host clock)
+    and unprofiled (CUDA events, 5 iterations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opticalimageprocessor_tpu_torch.models.device_pipeline import (
+        ScenePipeline,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    pan1, pan2, mss = synth_scene(torch, rng, lines, dev)
+    pipe = ScenePipeline(
+        rand_params(rng, W), rand_params(rng, W), rand_params(rng, 4, BW),
+        fold=FOLD_COLS // 2, overlap_cols=FOLD_COLS,
+    ).to(dev)
+
+    def step():
+        return int(pipe(pan1, pan2, mss)[0][0, 0, 0])    # forced readback
+
+    step()
+    unprofiled = time_ms(step, 5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="oip_prof_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev_ev = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    check(bool(dev_ev), "the profiler recorded no device time")
+    classes: dict[str, float] = {}
+    per_name: dict[str, list] = {}
+    for e in dev_ev:
+        label = _device_class(e["name"])
+        classes[label] = classes.get(label, 0.0) + e["dur"] / 1e3
+        acc = per_name.setdefault(e["name"][:90], [0.0, 0])
+        acc[0] += e["dur"] / 1e3
+        acc[1] += 1
+    busy = _union_ms((e["ts"], e["ts"] + e["dur"]) for e in dev_ev)
+    top = sorted(([round(v[0], 4), v[1], k] for k, v in per_name.items()),
+                 reverse=True)[:12]
+    return dict(
+        lines=lines, card=power, unprofiled_ms=unprofiled,
+        profiled_wall_ms=wall, busy_union_ms=busy,
+        idle_share_profiled=1.0 - busy / wall,
+        idle_share_unprofiled=1.0 - busy / unprofiled,
+        classes_ms=dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+        top_kernels=top,
+    )
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+
+    args = sys.argv[1:]
+    if args not in ([], ["--profile"]):
+        say("usage: python3 chip_smoke.py [--profile]")
+        return 2
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false")
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from opticalimageprocessor_tpu_torch import _build
+    except ImportError as e:
+        say(f"FAIL: the port package is not beside this script ({e})")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    say(power)       # the card's name and power limit, as nvidia-smi prints
+    say(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.library()
+    say(f"[build] kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            say(f"[build] {line.strip()}")
+
+    if args == ["--profile"]:
+        for lines in (32768, 65536):
+            say(f"[profile] {json.dumps(phase_profile(dev, power, lines))}")
+            torch.cuda.empty_cache()
+        return 0
+
+    records: dict[str, dict] = {}
+    phase_kernels(dev, records)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="oip_smoke_") as tmp:
+        os.environ["LOGFILE"] = os.path.join(tmp, "oip.log")
+        launches = phase_cli(dev, Path(tmp))
+    torch.cuda.empty_cache()
+    phase_pipeline(dev, power)
+
+    replaces = {
+        "rrc": ("opticalimageprocessor_tpu_torch/csrc/rrc.cu",
+                "opticalimageprocessor_tpu/ops/rrc.py:149"),
+        "crosspower": ("opticalimageprocessor_tpu_torch/csrc/crosspower.cu",
+                       "opticalimageprocessor_tpu/ops/phasecorr_pallas.py:136"),
+        "remap_band": ("opticalimageprocessor_tpu_torch/csrc/remap_band.cu",
+                       "opticalimageprocessor_tpu/ops/resample.py:752"),
+        "stitch_tail": ("opticalimageprocessor_tpu_torch/csrc/stitch_tail.cu",
+                        "opticalimageprocessor_tpu/ops/resample.py:1149"),
+    }
+    kernels = []
+    for name, (source, repl) in replaces.items():
+        r = records[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=repl,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], shape=r["shape"],
+        ))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,196 @@
+"""Phase-correlation pieces of the fast registration, in PyTorch.
+
+Counterpart of ``opticalimageprocessor_tpu/ops/phasecorr.py``'s fast path:
+spectra through ``torch.fft`` (cuFFT on the card) instead of the TPU's
+DFT-as-matmul (``ops/fft_mxu``), the spectral x4 band upsample, and the
+windowed correlation peak with its 5x5 centroid.  Spectra are complex
+tensors; the JAX functions' (re, im) pairs map to ``.real``/``.imag``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .resample import _X4_BASE, _X4_W
+
+_EPS64_F32 = float(np.float32(np.finfo(np.float64).eps))
+
+
+def rfft2_padded(x: torch.Tensor, pad_to: tuple[int, int]) -> torch.Tensor:
+    """Zero-pad the last two dims to ``pad_to`` and rfft2 (complex64)."""
+    h, w = x.shape[-2], x.shape[-1]
+    M, N = pad_to
+    p = F.pad(x.to(torch.float32), (0, N - w, 0, M - h))
+    return torch.fft.rfft2(p)
+
+
+def band_full_spectrum_small(band: torch.Tensor) -> torch.Tensor:
+    """Full (not half) 2-D spectrum of small band tiles (complex64)."""
+    return torch.fft.fft2(band.to(torch.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _upsample_filter_response(m: int, factor: int = 4):
+    """DFT of the x4 cubic upsample kernel on the length ``factor*m`` grid,
+    as (re, im) float32 numpy arrays.  Copied from
+    ``opticalimageprocessor_tpu/ops/phasecorr.py::_upsample_filter_response``
+    (importing it would load jax)."""
+    big_n = factor * m
+    taps = {}
+    for r in range(factor):
+        for c in range(4):
+            taps[r - factor * (_X4_BASE[r] + c)] = float(_X4_W[r, c])
+    k = np.arange(big_n, dtype=np.float64)
+    re = np.zeros(big_n)
+    im = np.zeros(big_n)
+    for s, w in taps.items():
+        ang = -2.0 * np.pi * k * s / big_n
+        re += w * np.cos(ang)
+        im += w * np.sin(ang)
+    return re.astype(np.float32), im.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _eval_consts(n: int, keep: int, win: int, rows_axis: bool):
+    """DFT-evaluation matrices (keep, 2*win+1) for the correlation surface
+    at shifts [-win, win] (float64 trig, float32 storage).  Copied from
+    ``opticalimageprocessor_tpu/ops/phasecorr.py::_eval_consts``."""
+    k = np.arange(keep, dtype=np.float64)
+    s = np.arange(-win, win + 1, dtype=np.float64)
+    ang = -2.0 * np.pi * np.outer(k, s) / n
+    cos = np.cos(ang)
+    sin = np.sin(ang)
+    if not rows_axis:
+        # half-spectrum doubling along the W axis (kx=0 once; Nyquist once)
+        wgt = np.full(keep, 2.0)
+        wgt[0] = 1.0
+        if n % 2 == 0 and keep == n // 2 + 1:
+            wgt[-1] = 1.0
+        cos = cos * wgt[:, None]
+        sin = sin * wgt[:, None]
+    return cos.astype(np.float32), sin.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def filter_response(m: int, factor: int, device) -> torch.Tensor:
+    """:func:`_upsample_filter_response` as a complex64 tensor on
+    ``device``, uploaded once per (shape, device); callers must not
+    modify it."""
+    re, im = _upsample_filter_response(m, factor)
+    return torch.complex(
+        torch.from_numpy(re), torch.from_numpy(im)
+    ).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def eval_consts(n: int, keep: int, win: int, rows_axis: bool, device):
+    """:func:`_eval_consts` as float32 tensors on ``device``, uploaded once
+    per (shape, device); callers must not modify them."""
+    c, s = _eval_consts(n, keep, win, rows_axis)
+    return torch.from_numpy(c).to(device), torch.from_numpy(s).to(device)
+
+
+def upsampled_band_spectrum(band: torch.Tensor, factor: int = 4):
+    """Half spectrum (factor*m, (factor*n)//2 + 1) of the x``factor``
+    circular-cubic-upsampled band tile(s), computed spectrally:
+    ``F_up[Ky,Kx] = Hr(Ky) Hc(Kx) F_band[Ky mod m, Kx mod n]``."""
+    m, n = band.shape[-2], band.shape[-1]
+    M, N = factor * m, factor * n
+    keep = N // 2 + 1
+    fb = band_full_spectrum_small(band)
+    ky = torch.arange(M, device=band.device) % m
+    kx = torch.arange(keep, device=band.device) % n
+    ft = fb[..., ky, :][..., kx]
+    hr = filter_response(m, factor, band.device)
+    hc = filter_response(n, factor, band.device)[:keep]
+    # complex multiply by Hr (per row) then Hc (per column)
+    return ft * hr[:, None] * hc[None, :]
+
+
+def clamp_win(win: tuple[int, int], pad_to: tuple[int, int]):
+    """Clamp a (win_y, win_x) peak window to under half the tile (the
+    windowed evaluation is circular: a window reaching dim/2 would alias)."""
+    return (
+        min(win[0], (pad_to[0] - 1) // 2),
+        min(win[1], (pad_to[1] - 1) // 2),
+    )
+
+
+def whitened_crosspower(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """``C / |C|`` with ``C = fa * conj(fb)`` (|C| == 0 -> divide by 1)."""
+    far, fai, fbr, fbi = fa.real, fa.imag, fb.real, fb.imag
+    pr = far * fbr + fai * fbi
+    pi = fai * fbr - far * fbi
+    mag = torch.sqrt(pr * pr + pi * pi)
+    den = torch.where(mag == 0, torch.ones_like(mag), mag)
+    return torch.complex(pr / den, pi / den)
+
+
+def contract_rows(dr, di, M: int, N: int, win_y: int):
+    """ky -> window rows: ``Re((dr + i di)(cos + i sin))`` summed over ky
+    against the (M, 2*win_y+1) evaluation matrices, / (M*N).  ``dr``/``di``:
+    (..., M, wx) -> (..., 2*win_y+1, wx)."""
+    cy_c, cy_s = eval_consts(M, M, win_y, True, dr.device)
+    return (
+        torch.matmul(cy_c.T, dr) - torch.matmul(cy_s.T, di)
+    ) / float(M * N)
+
+
+def peak_from_spectra_windowed(
+    fa: torch.Tensor, fb: torch.Tensor, pad_to: tuple[int, int],
+    win_y: int = 64, win_x: int = 64,
+):
+    """Fast-mode peak: the normalised correlation surface evaluated only at
+    shifts |dy| <= win_y, |dx| <= win_x (two small matmuls against DFT
+    evaluation matrices), then arg-max + 5x5 centroid.  ``fa``/``fb``:
+    (..., M, keep) complex half spectra.  Returns (dx, dy, response)
+    shaped like the batch dims."""
+    M, N = pad_to
+    keep = fa.shape[-1]
+    c = whitened_crosspower(fa, fb)
+    cx_c, cx_s = eval_consts(N, keep, win_x, False, fa.device)
+    cr, ci = c.real, c.imag
+    dr = torch.matmul(cr, cx_c) - torch.matmul(ci, cx_s)
+    di = torch.matmul(ci, cx_c) + torch.matmul(cr, cx_s)
+    return _centroid_on_window(contract_rows(dr, di, M, N, win_y),
+                               win_y, win_x)
+
+
+def _centroid_on_window(corr: torch.Tensor, win_y: int, win_x: int):
+    """Arg-max (first maximum, like ``jnp.argmax``) + 5x5 weighted centroid
+    on (..., 2*win_y+1, 2*win_x+1) windowed surfaces; returns (dx, dy,
+    response), each shaped like the batch dims."""
+    wy = 2 * win_y + 1
+    wx = 2 * win_x + 1
+    batch = corr.shape[:-2]
+    flat = corr.reshape(-1, wy * wx)
+    peak = torch.argmax(flat, dim=1)
+    py = peak // wx
+    px = peak % wx
+    start_r = torch.clamp(py - 2, 0, wy - 5)
+    start_c = torch.clamp(px - 2, 0, wx - 5)
+    ar = torch.arange(5, device=corr.device)
+    rr = start_r[:, None, None] + ar[None, :, None]        # (B, 5, 1)
+    cc = start_c[:, None, None] + ar[None, None, :]        # (B, 1, 5)
+    win = flat.reshape(-1, wy, wx)
+    bidx = torch.arange(flat.shape[0], device=corr.device)[:, None, None]
+    vals = win[bidx, rr, cc]                               # (B, 5, 5)
+    valid = (
+        (rr >= py[:, None, None] - 2) & (rr <= py[:, None, None] + 2)
+        & (cc >= px[:, None, None] - 2) & (cc <= px[:, None, None] + 2)
+    )
+    winm = torch.where(valid, vals, torch.zeros_like(vals))
+    s = winm.sum(dim=(1, 2))
+    s_eps = s + _EPS64_F32
+    cxc = (winm * cc.to(winm.dtype)).sum(dim=(1, 2)) / s_eps
+    cyc = (winm * rr.to(winm.dtype)).sum(dim=(1, 2)) / s_eps
+    # window coordinate w maps to shift s = w - win (cv::phaseCorrelate sign)
+    return (
+        (cxc - win_x).reshape(batch),
+        (cyc - win_y).reshape(batch),
+        s.reshape(batch),
+    )

@@ -1,0 +1,337 @@
+"""Cubic resampling of the fast scene path, in PyTorch.
+
+Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``'s fast path:
+
+* :func:`upsample4_f32` -- the exact x4 ``cv::resize`` INTER_CUBIC float
+  path (scene synthesis and tests);
+* :func:`remap_band_fast_chunked` -- the per-band alignment resample,
+  ``mapx = (cx1*xx + cx0 + xx)/4``, ``mapy = y + G(x)``,
+  ``G = (cy2*xx^2 + cy1*xx + cy0)/4``, xx = 4x: kernel (c) on CUDA;
+* :func:`remap_const_stitch_chunked` -- RRC of both PANs, the prestitch
+  translation of PAN2 and the seam concat: kernel (d) on CUDA.
+
+The column cubic keeps the semantics of the JAX package's banded column
+matrix (``_col_interp_matrix``): taps outside the image, or outside their
+``col_block`` block's ``col_halo`` window, are dropped.  All weight and
+coordinate arithmetic is float32 in the reference's expression order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .rrc import _rrc_plain
+
+ROW_OFF_BOUND_FAST = 6
+COL_BLOCK = 512
+COL_HALO = 32
+
+
+def interpolate_cubic_f32(x: np.ndarray) -> np.ndarray:
+    """OpenCV ``interpolateCubic`` (A = -0.75) in float32, reference
+    expression order; returns ``x.shape + (4,)``.  Copied from
+    ``opticalimageprocessor_tpu/ops/cv_exact.py::interpolate_cubic_f32``
+    (importing it would load jax)."""
+    x = np.asarray(x, dtype=np.float32)
+    A = np.float32(-0.75)
+    f1, f5, f8, f4 = (np.float32(v) for v in (1.0, 5.0, 8.0, 4.0))
+    f2, f3 = np.float32(2.0), np.float32(3.0)
+    xp1 = x + f1
+    c0 = ((A * xp1 - f5 * A) * xp1 + f8 * A) * xp1 - f4 * A
+    c1 = ((A + f2) * x - (A + f3)) * x * x + f1
+    omx = f1 - x
+    c2 = ((A + f2) * omx - (A + f3)) * omx * omx + f1
+    c3 = f1 - c0 - c1 - c2
+    return np.stack([c0, c1, c2, c3], axis=-1)
+
+
+def _phase_weights_x4() -> np.ndarray:
+    """Weights (4 phases, 4 taps) of a x4 cubic upsample: output 4k + r
+    samples source (4k + r + 0.5)/4 - 0.5 (from
+    ``opticalimageprocessor_tpu/ops/resample.py::_phase_weights_x4``)."""
+    fr = np.array([0.625, 0.875, 0.125, 0.375], dtype=np.float32)
+    return interpolate_cubic_f32(fr)
+
+
+_X4_W = _phase_weights_x4()
+_X4_BASE = (-2, -2, -1, -1)  # first-tap offset per phase
+
+
+def _upsample4_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x4 along ``axis`` with replicate-clamped taps, grouped order."""
+    n = x.shape[axis]
+    idx = torch.arange(n, device=x.device)
+    phases = []
+    for r in range(4):
+        g = [
+            x.index_select(axis, torch.clamp(idx + _X4_BASE[r] + c, 0, n - 1))
+            for c in range(4)
+        ]
+        w = [float(v) for v in _X4_W[r]]
+        phases.append(((g[0] * w[0] + g[1] * w[1]) + g[2] * w[2]) + g[3] * w[3])
+    ax = axis % x.dim()
+    shape = list(x.shape)
+    shape[ax] = 4 * n
+    return torch.stack(phases, dim=ax + 1).reshape(shape)
+
+
+def upsample4_f32(x: torch.Tensor) -> torch.Tensor:
+    """``cv::resize(src, 4x, INTER_CUBIC)`` float32 path: horizontal pass
+    then vertical, on (..., H, W) -> (..., 4H, 4W)."""
+    x = x.to(torch.float32)
+    x = _upsample4_axis(x, x.dim() - 1)
+    return _upsample4_axis(x, x.dim() - 2)
+
+
+def _cubic_weights_f32(t: torch.Tensor):
+    """float32 cubic weights, reference expression order (one op at a
+    time: PyTorch never fuses them into FMAs)."""
+    A = -0.75
+    tp1 = t + 1.0
+    w0 = ((A * tp1 - 5.0 * A) * tp1 + 8.0 * A) * tp1 - 4.0 * A
+    w1 = ((A + 2.0) * t - (A + 3.0)) * t * t + 1.0
+    omt = 1.0 - t
+    w2 = ((A + 2.0) * omt - (A + 3.0)) * omt * omt + 1.0
+    w3 = 1.0 - w0 - w1 - w2
+    return w0, w1, w2, w3
+
+
+def col_block_size(width: int, block: int | None) -> int:
+    """The column block of the banded column matrix: ``block`` capped at
+    the width, or the width's largest divisor below it."""
+    block = min(block or COL_BLOCK, width)
+    return next(b for b in range(block, 0, -1) if width % b == 0)
+
+
+def _col_taps(coeff_x: torch.Tensor, width: int, block: int, halo: int):
+    """Column taps of every output column: (first tap (W,) int64, weights
+    (4, W) float32) with the weight of every dropped tap zeroed -- taps
+    outside the image, and taps outside the block window
+    ``[start - halo, start + block + halo)`` (the construction of
+    ``_col_interp_matrix``)."""
+    f32 = torch.float32
+    dev = coeff_x.device
+    x = torch.arange(width, dtype=f32, device=dev)
+    xx = x * 4.0
+    mapx = (coeff_x[1] * xx + coeff_x[0] + xx) / 4.0
+    fl = torch.floor(mapx)
+    w = torch.stack(_cubic_weights_f32(mapx - fl))
+    tap0 = fl.to(torch.int64) - 1
+    blk_start = (torch.arange(width, device=dev) // block) * block
+    loc0 = tap0 - (blk_start - halo)
+    b = torch.arange(4, device=dev)[:, None]
+    ok = (
+        (tap0 + b >= 0) & (tap0 + b < width)
+        & (loc0 + b >= 0) & (loc0 + b < block + 2 * halo)
+    )
+    return tap0, torch.where(ok, w, torch.zeros_like(w))
+
+
+def _col_interp(src_f32: torch.Tensor, tap0, w) -> torch.Tensor:
+    """Column cubic ``sum_b w[b] * src[:, tap0 + b]`` in tap order."""
+    width = src_f32.shape[-1]
+    acc = torch.zeros_like(src_f32)
+    for b in range(4):
+        idx = torch.clamp(tap0 + b, 0, width - 1)
+        acc = acc + src_f32[..., idx] * w[b]
+    return acc
+
+
+def _band_g(coeff_y: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-column vertical offset G(x) from the fitted dy polynomial."""
+    x = torch.arange(width, dtype=torch.float32, device=coeff_y.device)
+    xx = x * 4.0
+    return (coeff_y[2] * xx * xx + coeff_y[1] * xx + coeff_y[0]) / 4.0
+
+
+def _row_pass_coeffs(g: torch.Tensor, row_bound: int):
+    """Per-column vertical weights as one (U, W) stack, U = 2*rb + 4:
+    ``cu[v, x] = sum_a wys[a, x] * [floor(G[x]) + a - 1 == v - rb - 1]``
+    (taps beyond the bound get no row, i.e. are dropped)."""
+    fl = torch.floor(g)
+    iy0 = fl.to(torch.int64)
+    wys = _cubic_weights_f32(g - fl)
+    rows = []
+    for u in range(-row_bound - 1, row_bound + 3):
+        cu = torch.zeros_like(g)
+        for a in range(4):
+            cu = cu + torch.where(iy0 + a - 1 == u, wys[a],
+                                  torch.zeros_like(g))
+        rows.append(cu)
+    return torch.stack(rows)
+
+
+def _round_u16(acc: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(acc), 0.0, 65535.0).to(torch.int32).to(
+        torch.uint16)
+
+
+def _remap_band_plain(src, coeff_x, coeff_y, row_bound, block, halo):
+    """Plain PyTorch band remap: column cubic, then the U per-column
+    vertical multiply-adds over the zero-bordered strip."""
+    rows, width = src.shape
+    tap0, w = _col_taps(coeff_x, width, block, halo)
+    colg = _col_interp(src.to(torch.float32), tap0, w)
+    cu = _row_pass_coeffs(_band_g(coeff_y, width), row_bound)
+    padded = F.pad(colg, (0, 0, row_bound + 1, row_bound + 2))
+    acc = torch.zeros_like(colg)
+    for v in range(cu.shape[0]):
+        acc = acc + padded[v:v + rows] * cu[v]
+    return _round_u16(acc)
+
+
+def _remap_band_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
+    if src.dim() != 2 or coeff_x.shape != (2,) or coeff_y.shape != (3,):
+        raise ValueError(
+            "remap_band_fast_chunked: src must be 2-D, coeff_x (2,) and "
+            f"coeff_y (3,); got {tuple(src.shape)}, "
+            f"{tuple(coeff_x.shape)}, {tuple(coeff_y.shape)}"
+        )
+    _build.require_cuda("remap_band_fast_chunked", src, coeff_x, coeff_y)
+    if src.dtype != torch.uint16:
+        raise ValueError("remap_band_fast_chunked: src must be uint16")
+    if coeff_x.dtype != torch.float32 or coeff_y.dtype != torch.float32:
+        raise ValueError("remap_band_fast_chunked: coefficients must be "
+                         "float32")
+    src = src.contiguous()
+    rows, width = src.shape
+    out = torch.empty_like(src)
+    _build.launch(
+        "remap_band", "oip_remap_band", src.data_ptr(), out.data_ptr(), rows,
+        width, block, halo, row_bound, coeff_x.data_ptr(),
+        coeff_y.data_ptr(), _build.stream_of(src),
+    )
+    return out
+
+
+def remap_band_fast_chunked(
+    src: torch.Tensor,
+    coeff_x,
+    coeff_y,
+    row_bound: int = ROW_OFF_BOUND_FAST,
+    col_block: int | None = None,
+    col_halo: int | None = None,
+) -> torch.Tensor:
+    """Band alignment remap of a (rows, W) uint16 band by the fitted
+    polynomials ``coeff_x`` (2,) and ``coeff_y`` (3,) (float32).
+
+    ``row_bound`` bounds |G| (vertical taps beyond it are dropped),
+    ``col_block``/``col_halo`` shape the column taps' windows (shifts
+    beyond the halo are dropped).  Where the JAX function streams row
+    chunks, the kernel covers the band in one launch."""
+    width = src.shape[-1]
+    block = col_block_size(width, col_block)
+    halo = COL_HALO if col_halo is None else col_halo
+    cx = torch.as_tensor(coeff_x, dtype=torch.float32, device=src.device)
+    cy = torch.as_tensor(coeff_y, dtype=torch.float32, device=src.device)
+    if src.device.type == "cpu":
+        return _remap_band_plain(src, cx, cy, row_bound, block, halo)
+    return _remap_band_cuda(src, cx, cy, row_bound, block, halo)
+
+
+def _stitch_tail_plain(pan1, pan2, k1, b1, k2, b2, dx, dy, fold, block, halo,
+                       want_prestt):
+    """Plain PyTorch stitch tail: RRC(PAN1) left half ++ the prestitch
+    translation of RRC(PAN2) right half."""
+    rows, width = pan1.shape
+    f32 = torch.float32
+    p1c = _rrc_plain(pan1, k1, b1)
+    p2c = _rrc_plain(pan2, k2, b2).to(f32)
+    dx_t = torch.tensor(dx, dtype=f32, device=pan1.device)
+    dy_t = torch.tensor(dy, dtype=f32, device=pan1.device)
+    tap0, w = _col_taps(torch.stack([4.0 * dx_t, torch.zeros_like(dx_t)]),
+                        width, block, halo)
+    colg = _col_interp(p2c, tap0, w)
+    fl = torch.floor(dy_t)
+    iy0 = int(fl)
+    wys = _cubic_weights_f32(dy_t - fl)
+    # strip rows outside [0, rows) read 0 after the RRC
+    pad = abs(iy0) + 2
+    padded = F.pad(colg, (0, 0, pad, pad))
+    acc = torch.zeros_like(colg)
+    for a in range(4):
+        s = pad + iy0 + a - 1
+        acc = acc + padded[s:s + rows] * wys[a]
+    prestt = _round_u16(acc)
+    stitched = torch.empty((rows, 2 * (width - fold)), dtype=torch.uint16,
+                           device=pan1.device)
+    stitched[:, :width - fold].copy_(p1c[:, :width - fold])
+    stitched[:, width - fold:].copy_(prestt[:, fold:])
+    return (stitched, prestt) if want_prestt else stitched
+
+
+def _stitch_tail_cuda(pan1, pan2, k1, b1, k2, b2, dx, dy, fold, block, halo,
+                      want_prestt):
+    if pan1.dim() != 2 or pan2.shape != pan1.shape or any(
+        t.shape != pan1.shape[1:] for t in (k1, b1, k2, b2)
+    ):
+        raise ValueError(
+            "remap_const_stitch_chunked: PANs must be one (rows, W) shape "
+            f"and k, b (W,); got {tuple(pan1.shape)}, {tuple(pan2.shape)}, "
+            f"{[tuple(t.shape) for t in (k1, b1, k2, b2)]}"
+        )
+    _build.require_cuda("remap_const_stitch_chunked", pan1, pan2, k1, b1,
+                        k2, b2)
+    if pan1.dtype != torch.uint16 or pan2.dtype != torch.uint16:
+        raise ValueError("remap_const_stitch_chunked: PANs must be uint16")
+    if any(t.dtype != torch.float64 for t in (k1, b1, k2, b2)):
+        raise ValueError("remap_const_stitch_chunked: k, b must be float64")
+    pan1, pan2 = pan1.contiguous(), pan2.contiguous()
+    rows, width = pan1.shape
+    dev = pan1.device
+    stitched = torch.empty((rows, 2 * (width - fold)), dtype=torch.uint16,
+                           device=dev)
+    prestt = (torch.empty_like(pan2) if want_prestt else None)
+    _build.launch(
+        "stitch_tail", "oip_stitch_tail", pan1.data_ptr(), pan2.data_ptr(),
+        k1.contiguous().data_ptr(), b1.contiguous().data_ptr(),
+        k2.contiguous().data_ptr(), b2.contiguous().data_ptr(),
+        stitched.data_ptr(), prestt.data_ptr() if want_prestt else None,
+        rows, width, fold, block, halo, dx, dy, _build.stream_of(pan1),
+    )
+    return (stitched, prestt) if want_prestt else stitched
+
+
+def remap_const_stitch_chunked(
+    pan1: torch.Tensor,
+    pan2: torch.Tensor,
+    pan1_k: torch.Tensor,
+    pan1_b: torch.Tensor,
+    pan2_k: torch.Tensor,
+    pan2_b: torch.Tensor,
+    dx: float,
+    dy: float,
+    fold: int,
+    row_bound: int = ROW_OFF_BOUND_FAST,
+    col_block: int | None = None,
+    col_halo: int | None = None,
+    want_prestt: bool = False,
+):
+    """Fused RRC + constant-shift prestitch remap + seam concat.
+
+    ``pan1``/``pan2``: (rows, W) uint16 RAW strips; ``pan*_k``/``pan*_b``:
+    (W,) float64 RRC parameters; ``dx``/``dy``: the translation, with
+    |dy| <= row_bound - 2 (the JAX package's halo contract).  Returns the
+    stitched (rows, 2*(W - fold)) uint16 raster; with ``want_prestt`` also
+    the prestitched PAN2 (rows, W)."""
+    dx = float(np.float32(dx))
+    dy = float(np.float32(dy))
+    if abs(dy) > row_bound - 2:
+        raise ValueError(
+            f"|dy| = {abs(dy)} beyond the supported row bound "
+            f"{row_bound} - 2"
+        )
+    width = pan1.shape[1]
+    if not 0 <= fold < width:
+        raise ValueError(f"fold {fold} outside [0, {width})")
+    block = col_block_size(width, col_block)
+    halo = COL_HALO if col_halo is None else col_halo
+    args = (pan1, pan2, pan1_k, pan1_b, pan2_k, pan2_b, dx, dy, fold, block,
+            halo, want_prestt)
+    if pan1.device.type == "cpu":
+        return _stitch_tail_plain(*args)
+    return _stitch_tail_cuda(*args)
+

@@ -1,0 +1,168 @@
+"""Port package contracts: no jax import, no CPU fallback for CUDA work,
+the build's failure mode, and the launch counters."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from opticalimageprocessor_tpu_torch import _build
+from opticalimageprocessor_tpu_torch.models import scene
+from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda, resample, rrc
+
+torch.set_num_threads(2)
+
+PORT_MODULES = [
+    "opticalimageprocessor_tpu_torch",
+    "opticalimageprocessor_tpu_torch._build",
+    "opticalimageprocessor_tpu_torch.cli",
+    "opticalimageprocessor_tpu_torch.models",
+    "opticalimageprocessor_tpu_torch.models.device_pipeline",
+    "opticalimageprocessor_tpu_torch.models.scene",
+    "opticalimageprocessor_tpu_torch.ops",
+    "opticalimageprocessor_tpu_torch.ops.phasecorr",
+    "opticalimageprocessor_tpu_torch.ops.phasecorr_cuda",
+    "opticalimageprocessor_tpu_torch.ops.resample",
+    "opticalimageprocessor_tpu_torch.ops.rrc",
+]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_run_scene_cuda_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        scene.run_scene("a", "b", "c", device="cuda")
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("which", ["rrc", "crosspower", "remap_band",
+                                   "stitch_tail"])
+def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, which):
+    """A tensor off the CPU never takes the plain version: without a CUDA
+    device the wrapper raises (here with meta tensors, which no kernel
+    accepts)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = dict(_build.LAUNCHES)
+    u16, f64 = torch.uint16, torch.float64
+    with pytest.raises(RuntimeError, match="no kernel for meta"):
+        if which == "rrc":
+            rrc.rrc_apply(_meta((8, 16), u16), _meta((16,), f64),
+                          _meta((16,), f64))
+        elif which == "crosspower":
+            phasecorr_cuda.windowed_crosspower_fused_tiles(
+                _meta((1, 64, 9), torch.complex64),
+                _meta((1, 4, 16, 4), torch.complex64), (64, 16), 16, 8, 4,
+            )
+        elif which == "remap_band":
+            resample._remap_band_cuda(
+                _meta((32, 128), u16), torch.zeros(2), torch.zeros(3), 3,
+                128, 16,
+            )
+        else:
+            resample._stitch_tail_cuda(
+                _meta((32, 128), u16), _meta((32, 128), u16),
+                *(_meta((128,), f64) for _ in range(4)), 0.0, 0.0, 16, 128,
+                16, False,
+            )
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("which", ["crosspower", "remap_band",
+                                   "stitch_tail"])
+def test_kernel_wrappers_reject_mismatched_shapes(which):
+    """Shapes that would send a kernel out of bounds are refused before
+    any launch (here on meta tensors, checked ahead of the device)."""
+    before = dict(_build.LAUNCHES)
+    u16, f64, c64 = torch.uint16, torch.float64, torch.complex64
+    with pytest.raises(ValueError, match="shape|got"):
+        if which == "crosspower":
+            phasecorr_cuda._crosspower_cuda(
+                _meta((2, 64, 9), c64), _meta((1, 4, 16, 4), c64),
+                _meta((64,), c64), _meta((9,), c64),
+                _meta((9, 9), torch.float32), _meta((9, 9), torch.float32),
+            )
+        elif which == "remap_band":
+            resample._remap_band_cuda(
+                _meta((32, 128), u16), torch.zeros(2), torch.zeros(2), 3,
+                128, 16,
+            )
+        else:
+            resample._stitch_tail_cuda(
+                _meta((32, 128), u16), _meta((16, 128), u16),
+                *(_meta((128,), f64) for _ in range(4)), 0.0, 0.0, 16, 128,
+                16, False,
+            )
+    assert _build.LAUNCHES == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library()
+
+
+class _FakeLib:
+    def __init__(self, rc):
+        self.rc = rc
+
+    def oip_rrc(self, *args):
+        return self.rc
+
+
+def test_launch_counts_only_successful_launches(monkeypatch):
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    monkeypatch.setattr(_build, "library", lambda: _FakeLib(0))
+    _build.launch("rrc", "oip_rrc")
+    _build.launch("rrc", "oip_rrc")
+    assert _build.LAUNCHES["rrc"] == 2
+    monkeypatch.setattr(_build, "library", lambda: _FakeLib(700))
+    with pytest.raises(RuntimeError, match="error 700"):
+        _build.launch("rrc", "oip_rrc")
+    assert _build.LAUNCHES["rrc"] == 2
+    _build.reset_launch_counts()
+    assert set(_build.LAUNCHES.values()) == {0}
+
+
+def test_library_path_keys_on_sources(monkeypatch, tmp_path):
+    """The built library's name hashes the sources and flags: an edited
+    kernel source gives a new library, an unchanged tree the same one."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text("// a\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    p1 = _build._library_path()
+    assert p1 == _build._library_path()
+    (src / "a.cu").write_text("// b\n")
+    assert _build._library_path() != p1
+
+
+def test_cpu_tensors_take_the_plain_versions(rng):
+    """On the CPU no kernel is built or counted."""
+    before = dict(_build.LAUNCHES)
+    src = torch.from_numpy(rng.integers(0, 65536, (8, 16), dtype=np.uint16))
+    rrc.rrc_apply(src, torch.ones(16, dtype=torch.float64),
+                  torch.zeros(16, dtype=torch.float64))
+    assert _build.LAUNCHES == before
+    assert _build._lib is None

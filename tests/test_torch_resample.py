@@ -1,0 +1,143 @@
+"""Port resampling (ops/resample) against the JAX package: the x4
+upsample, the band alignment remap (kernel (c)'s plain version) and the
+stitch tail (kernel (d)'s plain version), with pinned coefficients."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from opticalimageprocessor_tpu.ops import cv_exact
+from opticalimageprocessor_tpu.ops import resample as jres
+from opticalimageprocessor_tpu.ops import rrc as jrrc
+from opticalimageprocessor_tpu_torch.ops import resample
+
+torch.set_num_threads(2)
+
+
+def test_upsample4_matches_oracle_and_jax(rng):
+    """Bit-exact to the float32 cv::resize oracle (cv_exact); the JAX
+    function on XLA:CPU sits a few ulp off that oracle (its multiply-adds
+    contract into FMAs), so against JAX the gate is 4 ulp at the largest
+    magnitude."""
+    band = rng.integers(2000, 42000, (62, 40)).astype(np.float32)
+    got = resample.upsample4_f32(torch.from_numpy(band)).numpy()
+    np.testing.assert_array_equal(
+        got, cv_exact.resize_cubic_f32_exact(band, 248, 160)
+    )
+    want = np.asarray(jres.upsample4_f32(jnp.asarray(band)))
+    ulp = np.spacing(np.float32(np.abs(want).max()))
+    assert np.abs(got - want).max() <= 4 * ulp
+
+
+def test_x4_weights_match_jax():
+    np.testing.assert_array_equal(resample._X4_W, jres._X4_W)
+    assert resample._X4_BASE == jres._X4_BASE
+    t = np.linspace(0, 1, 97, dtype=np.float32)
+    got = torch.stack(resample._cubic_weights_f32(torch.from_numpy(t)), -1)
+    np.testing.assert_array_equal(got.numpy(), cv_exact.interpolate_cubic_f32(t))
+
+
+_COEFFS = {
+    # non-trivial slope + curvature, per-column floor(G) changes
+    "interior": ([3.7, -2.1e-4], [-1.9, 6.5e-4, -3.0e-7]),
+    # horizontal shift crossing col_halo (16) mid-strip: taps dropped
+    "past_col_halo": ([40.0, 5.0e-3], [1.2, 0.0, 0.0]),
+    # G beyond row_bound (4): vertical taps dropped
+    "past_row_bound": ([-2.5, 0.0], [22.0, 0.0, 0.0]),
+}
+
+
+def _jax_remap(src, cx, cy, pallas):
+    kw = dict(chunk_rows=128, row_bound=4, col_block=128, col_halo=16)
+    if not pallas:
+        return np.asarray(
+            jres.remap_band_fast_chunked(jnp.asarray(src), cx, cy, **kw)
+        )
+    try:
+        jres.set_fused_remap_pallas(True, interpret=True)
+        return np.asarray(
+            jres.remap_band_fast_chunked(jnp.asarray(src), cx, cy, **kw)
+        )
+    finally:
+        jres.set_fused_remap_pallas(False)
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("case", sorted(_COEFFS))
+def test_remap_band_matches_jax(rng, case, pallas):
+    src = rng.integers(0, 65536, (300, 768), dtype=np.uint16)
+    cx = np.asarray(_COEFFS[case][0], np.float32)
+    cy = np.asarray(_COEFFS[case][1], np.float32)
+    want = _jax_remap(src, cx, cy, pallas)
+    got = resample.remap_band_fast_chunked(
+        torch.from_numpy(src), cx, cy, row_bound=4, col_block=128,
+        col_halo=16,
+    ).numpy()
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1, (case, d.max())
+    assert (d > 0).mean() <= 0.01, (case, (d > 0).mean())
+
+
+def test_col_block_size_matches_jax_matrix():
+    for width, block in ((768, 128), (640, 128), (100, 512), (96, 64)):
+        m = jres._col_interp_matrix(
+            jnp.asarray([0.0, 0.0], jnp.float32), width, block, 16
+        )
+        assert resample.col_block_size(width, block) == m.shape[2]
+
+
+def _stitch_inputs(rng, rows=300, width=768):
+    pan1 = rng.integers(0, 65535, (rows, width), np.uint16)
+    pan2 = rng.integers(0, 65535, (rows, width), np.uint16)
+    k1, k2 = (0.98 + 0.04 * rng.random(width) for _ in range(2))
+    b1, b2 = (rng.normal(0, 20, width) for _ in range(2))
+    return pan1, pan2, k1, b1, k2, b2
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("dy", [-6.0, -2.9, 0.0, 2.4, 6.0])
+def test_stitch_tail_matches_jax(rng, dy, pallas):
+    """Clamp edges (|dy| = prestt_row_bound - 2 = 6) and interior shifts,
+    against JAX's default path and its Pallas tail (interpret mode): the
+    left half is RRC(PAN1) byte for byte, the right half (and the
+    prestitched PAN2) within 1 DN on <= 1% of pixels."""
+    pan1, pan2, k1, b1, k2, b2 = _stitch_inputs(rng)
+    dx, fold = -3.2 if dy <= 0 else 1.7, 100
+    try:
+        jres.set_fused_remap_pallas(pallas, interpret=True)
+        want, want_p = jres.remap_const_stitch_chunked(
+            jnp.asarray(pan1), jnp.asarray(pan2),
+            jnp.asarray(jrrc.split_rrc_params(k1, b1)),
+            jnp.asarray(jrrc.split_rrc_params(k2, b2)),
+            jnp.float32(dx), jnp.float32(dy), fold, chunk_rows=128,
+            row_bound=8, col_block=128, col_halo=16, want_prestt=True,
+        )
+    finally:
+        jres.set_fused_remap_pallas(False)
+    got, got_p = resample.remap_const_stitch_chunked(
+        *(torch.from_numpy(x) for x in (pan1, pan2, k1, b1, k2, b2)),
+        dx, dy, fold, row_bound=8, col_block=128, col_halo=16,
+        want_prestt=True,
+    )
+    want, want_p, got, got_p = (
+        np.asarray(x).astype(np.int32) for x in (want, want_p, got, got_p)
+    )
+    left = 768 - fold
+    assert got.shape == (300, 2 * left)
+    np.testing.assert_array_equal(got[:, :left], want[:, :left])
+    np.testing.assert_array_equal(
+        got[:, :left], cv_exact.rrc_exact(pan1, k1, b1)[:, :left]
+    )
+    for g, w in ((got[:, left:], want[:, left:]), (got_p, want_p)):
+        d = np.abs(g - w)
+        assert d.max() <= 1 and (d > 0).mean() <= 0.01, (d.max(), dy)
+
+
+def test_stitch_tail_rejects_dy_beyond_row_bound(rng):
+    pan1, pan2, k1, b1, k2, b2 = _stitch_inputs(rng, rows=64, width=256)
+    with pytest.raises(ValueError, match="row bound"):
+        resample.remap_const_stitch_chunked(
+            *(torch.from_numpy(x) for x in (pan1, pan2, k1, b1, k2, b2)),
+            0.0, 6.5, 32, row_bound=8, col_block=128, col_halo=16,
+        )

@@ -1,0 +1,198 @@
+"""Port scene (models/scene.run_scene, cli scene) end to end against the
+JAX package's run_scene on the same RAW files and RRC CSVs."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from opticalimageprocessor_tpu.formats.rrc_csv import save_rrc_params
+from opticalimageprocessor_tpu.io import tiff as tiff_io
+from opticalimageprocessor_tpu.models import scene as jscene
+from opticalimageprocessor_tpu.ops import resample as jres
+from opticalimageprocessor_tpu_torch import cli
+from opticalimageprocessor_tpu_torch.models import scene
+from opticalimageprocessor_tpu_torch.models.device_pipeline import (
+    ScenePipeline,
+)
+
+torch.set_num_threads(2)
+
+PIX, LINES, FOLD = 3072, 2048, 200
+KW = dict(slices=8, stt_sections=4, fold_cols=FOLD, pixels_per_line=PIX)
+
+
+def _write_scene(d, rng, lines, width, dy):
+    """bench.py:217-259's synthesis, small: PAN1 = x4 upsample of noise,
+    PAN2 = PAN1 rolled by (dy, 200 - 3 - W), band b = the noise rolled by
+    (b mod 2, b - 1); random RRC CSVs."""
+    scene_lr = rng.integers(2000, 42000, (lines // 4, width // 4)).astype(
+        np.float32)
+    up = np.clip(np.rint(np.asarray(jres.upsample4_f32(scene_lr))), 0, 65535)
+    pan1 = up.astype(np.uint16)
+    pan2 = np.roll(np.roll(up, dy, 0), FOLD - 3 - width, 1).astype(np.uint16)
+    mss = np.stack([np.roll(scene_lr, (b % 2, b - 1), (0, 1))
+                    for b in range(4)]).astype(np.uint16)
+    files = {n: os.path.join(d, f"{n}.RAW") for n in ("pan1", "pan2", "mss")}
+    pan1.tofile(files["pan1"])
+    pan2.tofile(files["pan2"])
+    mss.transpose(1, 0, 2).tofile(files["mss"])
+    params = {}
+    for name, n in (("pan1", width), ("pan2", width),
+                    *[(f"msb{b}", width // 4) for b in range(1, 5)]):
+        kb = np.stack([0.98 + 0.04 * rng.random(n), rng.normal(0, 20, n)], 1)
+        files[f"rrc_{name}"] = os.path.join(d, f"{name}.csv")
+        save_rrc_params(files[f"rrc_{name}"], kb)
+        params[name] = (kb[:, 0], kb[:, 1])
+    return files, params, (pan1, pan2, mss)
+
+
+def _run(module, files, out_dir, captured):
+    rrc_mss = tuple(files[f"rrc_msb{b}"] for b in range(1, 5))
+
+    def capture(params, n_valid, n_stt):
+        captured.update(params=params, n_valid=np.asarray(n_valid),
+                        n_stt=int(n_stt))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(module, "log_scene_params", capture)
+        extra = {"device": "cpu"} if module is scene else {}
+        return module.run_scene(
+            files["pan1"], files["pan2"], files["mss"], files["rrc_pan1"],
+            files["rrc_pan2"], rrc_mss, out_dir=out_dir,
+            out_stitched=os.path.join(out_dir, "STITCHED.RAW"), **KW, **extra,
+        )
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("scene"))
+    rng = np.random.default_rng(77)
+    files, params, arrays = _write_scene(d, rng, LINES, PIX, dy=2)
+    out = {}
+    for name, module in (("jax", jscene), ("port", scene)):
+        od = os.path.join(d, name)
+        os.mkdir(od)
+        cap = {}
+        paths = _run(module, files, od, cap)
+        cap["aligned"] = tiff_io.read_tiff(paths["aligned"])[..., [2, 1, 0, 3]]
+        cap["stitched"] = np.fromfile(paths["stitched"], "<u2").reshape(
+            LINES, -1)
+        out[name] = cap
+    return out, params, arrays
+
+
+def _curve(c):
+    x = np.linspace(0.0, PIX, 257)
+    c = np.asarray(c, np.float64)
+    return sum(c[k] * x**k for k in range(c.size))
+
+
+def test_scene_estimates_match_jax(runs):
+    out, _, _ = runs
+    j, p = out["jax"], out["port"]
+    np.testing.assert_array_equal(p["n_valid"], j["n_valid"])
+    assert p["n_stt"] == j["n_stt"] == 4
+    for k in (0, 1):                       # cx (4, 2), cy (4, 3)
+        for b in range(4):
+            d = np.abs(_curve(p["params"][k][b]) - _curve(j["params"][k][b]))
+            assert d.max() <= 1e-3, (k, b, d.max())
+    for k in (2, 3, 4, 5):                 # clamped and raw stt dx, dy
+        assert abs(float(p["params"][k]) - float(j["params"][k])) <= 1e-3
+
+
+def _check_envelope(got, want, what):
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.01, (what, d.max(),
+                                                     (d > 0).mean())
+
+
+def test_scene_pinned_transform_matches_jax(runs):
+    """JAX's estimates pinned into the port's transform: aligned within
+    1 DN on <= 1% of pixels; stitched left half byte-exact, right half
+    within 1 DN on <= 1%."""
+    out, params, (pan1, pan2, mss) = runs
+    j = out["jax"]
+    cx, cy, _, _, raw_dx, raw_dy = j["params"]
+    pipe = ScenePipeline(
+        params["pan1"], params["pan2"],
+        tuple(np.stack([params[f"msb{b}"][i] for b in range(1, 5)])
+              for i in (0, 1)),
+        slices=8, fold=FOLD // 2, stt_sections=4, overlap_cols=FOLD,
+    )
+    aligned, stitched = pipe.transform(
+        *(torch.from_numpy(x) for x in (pan1, pan2, mss)),
+        torch.from_numpy(np.array(cx, np.float32)),
+        torch.from_numpy(np.array(cy, np.float32)),
+        np.float32(raw_dx), np.float32(raw_dy),
+    )
+    _check_envelope(aligned.numpy(), j["aligned"], "aligned")
+    left = PIX - FOLD // 2
+    st = stitched.numpy()
+    np.testing.assert_array_equal(st[:, :left], j["stitched"][:, :left])
+    _check_envelope(st[:, left:], j["stitched"][:, left:], "stitched")
+
+
+def test_scene_outputs_match_jax(runs):
+    """Unpinned: the port's own estimates through its own transform.  On
+    noise a ~1e-4 px estimate difference moves isolated pixels by several
+    DN (docs/NUMERICS.md:35-42), so the gates on the estimate-dependent
+    rasters are means; the stitched left half (no estimate) stays exact."""
+    out, _, _ = runs
+    j, p = out["jax"], out["port"]
+    assert p["aligned"].shape == j["aligned"].shape == (LINES // 4, PIX // 4,
+                                                        4)
+    d = np.abs(p["aligned"].astype(np.int32) - j["aligned"].astype(np.int32))
+    assert d.mean() < 0.05, d.mean()
+    left = PIX - FOLD // 2
+    assert p["stitched"].shape == j["stitched"].shape == (LINES, 2 * left)
+    np.testing.assert_array_equal(p["stitched"][:, :left],
+                                  j["stitched"][:, :left])
+    d = np.abs(p["stitched"][:, left:].astype(np.int32)
+               - j["stitched"][:, left:].astype(np.int32))
+    assert d.mean() < 0.05, d.mean()
+
+
+@pytest.fixture(scope="module")
+def wide_scene(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("cli"))
+    files, _, _ = _write_scene(d, np.random.default_rng(5), 1024, 12288, dy=3)
+    return d, files
+
+
+def _argv(files, d, *extra):
+    argv = ["scene", "--pan1", files["pan1"], "--pan2", files["pan2"],
+            "--mss", files["mss"], "--rrc-pan1", files["rrc_pan1"],
+            "--rrc-pan2", files["rrc_pan2"], "--slices", "8", "-s", "4",
+            "--out-dir", d, "-o", os.path.join(d, "OUT.RAW"),
+            "--device", "cpu"]
+    for b in range(1, 5):
+        argv += [f"--rrc-msb{b}", files[f"rrc_msb{b}"]]
+    return argv + list(extra)
+
+
+def test_cli_scene_runs_at_camera_width(wide_scene):
+    d, files = wide_scene
+    assert cli.main(_argv(files, d)) == 0
+    st = np.fromfile(os.path.join(d, "OUT.RAW"), "<u2")
+    assert st.size == 1024 * 2 * (12288 - FOLD // 2)
+    aligned = tiff_io.read_tiff(os.path.join(d, "mss.ALIGNED.TIFF"))
+    assert aligned.shape == (256, 3072, 4)
+
+
+@pytest.mark.parametrize("case", ["fold_too_small", "missing_pan1"])
+def test_cli_scene_usage_errors(wide_scene, case):
+    d, files = wide_scene
+    if case == "fold_too_small":
+        argv = _argv(files, d, "-c", "1")
+    else:
+        argv = _argv(dict(files, pan1=os.path.join(d, "nope.RAW")), d)
+    assert cli.main(argv) == 254
+
+
+def test_cli_scene_runtime_error_is_rc2(wide_scene):
+    """A validity failure (here: too many stt sections for the strip) is
+    a runtime error, exit code 2."""
+    d, files = wide_scene
+    assert cli.main(_argv(files, d, "-s", "20")) == 2
