@@ -14,17 +14,25 @@ intervals, idle share; no other phase runs):
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, torch/CUDA versions, and the build of
-   the four hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
+   the five hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the scene pipeline gives it, with its stated tolerance, and
-   both timed with CUDA events;
+   shapes the main paths give it, with its stated tolerance, and both
+   timed with CUDA events;
 3. the CLI entry (``cli.main(["scene", ...])``) on a 16384-line scene of
    RAW files built like bench.py's synthesis, checking the outputs, the
    recovered band shifts and stt translation, and that the stitched left
    half is RRC(PAN1) byte for byte -- with every kernel's launch count
    read around this run;
 4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
-   path against the plain path with pinned estimates, then timed.
+   path against the plain path with pinned estimates, then timed;
+5. the file workflow through ``cli.main`` on 16384-line RAW files:
+   ``prestitch --fast`` on a CMOS pair 3 rows apart (kernel (c)'s route)
+   and on one 9 rows apart (the staged route, kernel (e)), the default
+   ``--fast`` registration + alignment, and ``stitch`` -- checking the
+   recovered translations and band rolls, the RRC files against a numpy
+   oracle byte for byte, the PRESTT files and the ALIGNED.TIFF against the
+   plain route at 0 DN, and the stitched raster's left half against PAN1,
+   with the launch counts read around each command.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -235,7 +244,7 @@ def phase_kernels(dev, records):
     torch.cuda.synchronize()
     dmax, share = dn_diff(got, plain)
     say(f"[c] remap_band: max {dmax} DN, {share:.4%} of pixels differ")
-    check(dmax <= 1 and share <= 0.01, "remap_band vs plain")
+    check(dmax == 0, "remap_band vs plain")
     records["remap_band"] = dict(
         max_abs_err=float(dmax),
         ms=time_ms(lambda: resample._remap_band_cuda(band, cx, cy, **kw), 20),
@@ -269,16 +278,46 @@ def phase_kernels(dev, records):
         dmax, share = dn_diff(got[:, left:], plain[:, left:])
         say(f"[d] stitch_tail dx {dx} dy {dy}: left exact, right max "
             f"{dmax} DN on {share:.4%}")
-        check(dmax <= 1 and share <= 0.01, "stitch right half vs plain")
+        check(dmax == 0, "stitch right half vs plain")
         worst = max(worst, dmax)
     a = (p1, p2, k1, b1, k2, b2, -2.7, 1.6, fold)
     records["stitch_tail"] = dict(
         max_abs_err=float(worst),
         ms=time_ms(lambda: resample._stitch_tail_cuda(*a, **skw), 20),
         plain_ms=time_ms(lambda: resample._stitch_tail_plain(*a, **skw), 3),
-        shape="(4096, 12288) u16 pair -> (4096, 24176)",
+        shape="(4096, 12288) u16 pair -> (4096, 24376)",
     )
+    del p1, p2
     say(f"[d] {records['stitch_tail']}")
+
+    # (e) row pass: one 8192-row chunk of the staged remap at the camera
+    # width, row bound 10 (U = 24), floor(G) running 7..9 across the strip
+    rows, rb = 8192, 10
+    U = 2 * rb + 4
+    padded = torch.from_numpy(
+        (rng.random((rows + U - 1, W), dtype=np.float32) * 65535.0)).to(dev)
+    x = torch.arange(W, dtype=torch.float32, device=dev)
+    g = 8.5 + 1.4 * torch.sin(x * (6.0 / W))
+    check(set(torch.floor(g).int().unique().tolist()) == {7, 8, 9},
+          "row pass G floors")
+    cu = resample._row_pass_coeffs(g, rb)
+    got = resample._fast_row_pass_cuda(padded, cu, rows)
+    plain = resample._fast_row_pass_plain(padded, cu, rows)
+    torch.cuda.synchronize()
+    ulp = int((got.view(torch.int32) - plain.view(torch.int32)).abs().max())
+    err = float((got - plain).abs().max())
+    say(f"[e] row_pass: max {ulp} ulp, max |d| {err}")
+    check(ulp == 0, "row_pass vs plain not bit-exact")
+    records["row_pass"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: resample._fast_row_pass_cuda(padded, cu, rows),
+                   20),
+        plain_ms=time_ms(
+            lambda: resample._fast_row_pass_plain(padded, cu, rows), 3),
+        shape=f"padded ({rows + U - 1}, {W}) f32, U {U} -> ({rows}, {W})",
+    )
+    del padded, got, plain
+    say(f"[e] {records['row_pass']}")
 
 
 # ---------------------------------------------------------------------------
@@ -293,25 +332,11 @@ def _write_csv(path, k, b):
 
 
 def _tiff_shape(path):
-    """(width, height, samples) from a little-endian classic or BigTIFF."""
-    import struct
+    """(width, height, samples) of a TIFF, through the port's host IO."""
+    from opticalimageprocessor_tpu_torch.io import tiff
 
-    with open(path, "rb") as f:
-        head = f.read(16)
-        big = struct.unpack("<H", head[2:4])[0] == 43
-        off = struct.unpack("<Q", head[8:16])[0] if big else \
-            struct.unpack("<I", head[4:8])[0]
-        f.seek(off)
-        n = struct.unpack("<Q" if big else "<H", f.read(8 if big else 2))[0]
-        tags = {}
-        for _ in range(n):
-            e = f.read(20 if big else 12)
-            tag, typ = struct.unpack("<HH", e[:4])
-            val = e[12:] if big else e[8:]
-            fmt = {3: "<H", 4: "<I", 16: "<Q"}.get(typ)
-            if fmt:
-                tags[tag] = struct.unpack(fmt, val[:struct.calcsize(fmt)])[0]
-    return tags.get(256), tags.get(257), tags.get(277, 1)
+    info = tiff.read_tiff_info(str(path))
+    return info.width, info.height, info.samples
 
 
 def phase_cli(dev, tmp: Path, lines: int = 16384):
@@ -347,8 +372,10 @@ def phase_cli(dev, tmp: Path, lines: int = 16384):
     launches = dict(_build.LAUNCHES)
     say(f"[cli] scene rc {rc} in {secs:.3f} s; launches {launches}")
     check(rc == 0, f"cli scene exit code {rc}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    check(all(launches[k] > 0 for k in
+              ("rrc", "crosspower", "remap_band", "stitch_tail"))
+          and launches["row_pass"] == 0,
+          f"the scene path's kernels (a)-(d) did not all launch: {launches}")
 
     aligned = list(tmp.glob("*.ALIGNED.TIFF"))
     check(len(aligned) == 1, f"ALIGNED.TIFF missing: {aligned}")
@@ -431,7 +458,7 @@ def phase_pipeline(dev, power, lines: int = 32768):
     torch.cuda.synchronize()
     dmax, share = dn_diff(aligned, al_p)
     say(f"[pipe] aligned kernel vs plain: max {dmax} DN on {share:.4%}")
-    check(dmax <= 1 and share <= 0.01, "aligned vs plain")
+    check(dmax == 0, "aligned vs plain")
     left = W - pipe.fold
     check(bool((stitched[:, :left].to(torch.int32)
                 == st_p[:, :left].to(torch.int32)).all()),
@@ -439,7 +466,7 @@ def phase_pipeline(dev, power, lines: int = 32768):
     dmax, share = dn_diff(stitched[:, left:], st_p[:, left:])
     say(f"[pipe] stitched right half kernel vs plain: max {dmax} DN on "
         f"{share:.4%}")
-    check(dmax <= 1 and share <= 0.01, "stitched vs plain")
+    check(dmax == 0, "stitched vs plain")
     del al_p, st_p, aligned, stitched
 
     def step():
@@ -468,10 +495,220 @@ def phase_pipeline(dev, power, lines: int = 32768):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the file workflow (prestitch, default align, stitch) on RAW files
+# ---------------------------------------------------------------------------
+
+def _spy_remaps(resample):
+    """Record (cx, cy, row_bound) of every remap_band_fast_chunked call the
+    file commands make (the models call it through the module); returns
+    the record list and a function that restores the original."""
+    calls = []
+    real = resample.remap_band_fast_chunked
+
+    def spy(src, coeff_x, coeff_y, row_bound=resample.ROW_OFF_BOUND_FAST,
+            **kw):
+        calls.append((np.asarray(coeff_x, np.float32).copy(),
+                      np.asarray(coeff_y, np.float32).copy(), row_bound))
+        return real(src, coeff_x, coeff_y, row_bound, **kw)
+
+    resample.remap_band_fast_chunked = spy
+    return calls, lambda: setattr(resample, "remap_band_fast_chunked", real)
+
+
+def _plain_remap(resample, src, cx, cy, row_bound):
+    """The plain PyTorch route of a remap_band_fast_chunked call: the
+    column cubic, the U vertical multiply-adds over the whole zero-bordered
+    strip, rint -- for either route the kernels take."""
+    import torch
+
+    dev = src.device
+    block = resample.col_block_size(src.shape[1], None)
+    return resample._remap_band_plain(
+        src, torch.from_numpy(cx).to(dev), torch.from_numpy(cy).to(dev),
+        row_bound, block, resample.COL_HALO)
+
+
+def _raw(path, width=None):
+    return np.fromfile(path, dtype="<u2").reshape(-1, width or W)
+
+
+def phase_files(dev, tmp: Path, lines: int = 16384):
+    import torch
+
+    from opticalimageprocessor_tpu_torch import _build, cli
+    from opticalimageprocessor_tpu_torch.io import tiff
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    rng = np.random.default_rng(SEED + 3)
+    pan1, pan2a, mss = synth_scene(torch, rng, lines, dev, dy=3)
+    pan2b = torch.roll(pan1.to(torch.int32), (9, FOLD_COLS - 3 - W),
+                       (0, 1)).to(torch.uint16)
+    files = {n: tmp / f"{n}.RAW" for n in
+             ("CMOS1.PAN", "CMOS2A.PAN", "CMOS2B.PAN", "CMOS1.MSS")}
+    pan1_h = pan1.cpu().numpy()
+    pan1_h.tofile(files["CMOS1.PAN"])
+    pan2a.cpu().numpy().tofile(files["CMOS2A.PAN"])
+    pan2b.cpu().numpy().tofile(files["CMOS2B.PAN"])
+    mss_h = mss.cpu().numpy()
+    mss_h.transpose(1, 0, 2).tofile(files["CMOS1.MSS"])
+    del pan1, pan2a, pan2b, mss
+    kb = {"pan1": rand_params(rng, W), "pan2": rand_params(rng, W)}
+    for b in range(1, 5):
+        kb[f"msb{b}"] = rand_params(rng, BW)
+    csv = {}
+    for name, (k, b) in kb.items():
+        csv[name] = str(tmp / f"{name}.csv")
+        _write_csv(csv[name], k, b)
+
+    log = Path(os.environ["LOGFILE"])
+    launches, calls_by = {}, {}
+    calls, restore = _spy_remaps(resample)
+
+    def run(tag, argv):
+        calls.clear()
+        mark = log.stat().st_size if log.exists() else 0
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[tag] = dict(_build.LAUNCHES)
+        calls_by[tag] = list(calls)
+        say(f"[files] {tag}: rc {rc} in {secs:.3f} s; launches "
+            f"{launches[tag]}")
+        check(rc == 0, f"{tag} exit code {rc}")
+        text = log.read_bytes()[mark:].decode()
+        # each stage() span of this command: seconds and MB/s
+        for m in re.finditer(r"\] \[([^\]]+)\] (.*(?:MBps\)|seconds))\.$",
+                             text, re.M):
+            say(f"[files] {tag} stage {m.group(1)}: {m.group(2)}")
+        return text
+
+    try:
+        # 1. prestitch of two pairs: 3 rows apart (kernel (c)'s route) and
+        #    9 rows apart (row bound 10-11: the staged route, kernel (e))
+        for tag, pan2, dy in (("prestitch_dy3", "CMOS2A.PAN", 3),
+                              ("prestitch_dy9", "CMOS2B.PAN", 9)):
+            out = tmp / tag
+            out.mkdir()
+            text = run(tag, [
+                "prestitch", "--fast", "--pan1", str(files["CMOS1.PAN"]),
+                "--pan2", str(files[pan2]), "--rrc1", csv["pan1"],
+                "--rrc2", csv["pan2"], "-s", "1", "-l", "16000",
+                "--stitch-overlap", str(FOLD_COLS), "--out-dir", str(out),
+                "--device", dev.type])
+            got = re.findall(r"everage value: dx: (\S+), dy: (\S+), r:", text)
+            check(len(got) == 1, f"{tag}: stt log parse")
+            sdx, sdy = (float(v) for v in got[0])
+            say(f"[files] {tag}: stt ({sdx}, {sdy})")
+            check(abs(sdx + 3) < 0.05 and abs(sdy - dy) < 0.05,
+                  f"{tag}: stt ({sdx}, {sdy}) vs (-3, {dy})")
+            (cx, cy, rb), = calls_by[tag]
+            staged = rb > resample.ROW_OFF_BOUND_FAST
+            n = launches[tag]
+            check(staged == (dy == 9), f"{tag}: row bound {rb}")
+            check(n["rrc"] == 2 and n["crosspower"] == 0
+                  and n["stitch_tail"] == 0, f"{tag}: launches {n}")
+            check((n["row_pass"] > 0, n["remap_band"]) ==
+                  ((True, 0) if staged else (False, 1)),
+                  f"{tag}: route launches {n}")
+            for src, par in (("CMOS1.PAN", "pan1"), (pan2, "pan2")):
+                rrc_h = _raw(out / f"{src}.RRC.RAW")
+                raw_h = _raw(files[src])
+                for a in range(0, lines, 4096):
+                    check(np.array_equal(
+                        rrc_h[a:a + 4096],
+                        rrc_oracle(raw_h[a:a + 4096], *kb[par])),
+                        f"{tag}: {src}.RRC.RAW != numpy oracle")
+            src = torch.from_numpy(rrc_h).to(dev)
+            plain = _plain_remap(resample, src, cx, cy, rb).cpu().numpy()
+            prestt = _raw(out / f"{pan2}.RRC.PRESTT.RAW")
+            check(prestt.shape == (lines, W), f"{tag}: PRESTT shape")
+            dmax = int(np.abs(prestt.astype(np.int32)
+                              - plain.astype(np.int32)).max())
+            say(f"[files] {tag}: row bound {rb}, RRC.RAW == oracle, "
+                f"PRESTT vs plain route max {dmax} DN")
+            check(dmax == 0, f"{tag}: PRESTT vs plain route")
+            del src, plain, prestt
+            torch.cuda.empty_cache()
+            if dy == 9:                  # stitch takes the dy = 3 pair
+                shutil.rmtree(out)
+                files[pan2].unlink()
+
+        # 2. registration + alignment (the default command)
+        out = tmp / "align"
+        out.mkdir()
+        argv = ["--fast", "--pan", str(files["CMOS1.PAN"]), "--mss",
+                str(files["CMOS1.MSS"]), "--do-rrc4pan", "--rrc-pan",
+                csv["pan1"], "--slices", "10", "--ibc-sections", "1",
+                "--out-dir", str(out), "--device", dev.type]
+        for b in range(1, 5):
+            argv += [f"--rrc-msb{b}", csv[f"msb{b}"]]
+        run("align", argv)
+        n = launches["align"]
+        check(n["remap_band"] == 4 and n["rrc"] > 0 and n["row_pass"] == 0
+              and n["crosspower"] == 0, f"align: launches {n}")
+        check(len(calls_by["align"]) == 4, "align: 4 band remaps")
+        xs = np.arange(0.0, W + 1, 64.0)
+        worst = 0.0
+        for b, (cx, cy, rb) in enumerate(calls_by["align"]):
+            fx = cx[0] + cx[1] * xs
+            fy = cy[0] + cy[1] * xs + cy[2] * xs * xs
+            err = max(np.abs(fx - 4 * (b - 1)).max(),
+                      np.abs(fy - 4 * (b % 2)).max())
+            worst = max(worst, float(err))
+            check(rb == resample.ROW_OFF_BOUND_FAST, f"align rb {rb}")
+        # the rolls are whole band pixels (4 PAN px each); the fits are in
+        # PAN px over the strip
+        say(f"[files] align: fitted band rolls within {worst:.5f} PAN px "
+            f"= {worst / 4:.5f} band px")
+        check(worst / 4 < 0.01, f"align: band rolls off by {worst} PAN px")
+        path = out / "CMOS1.MSS.ALIGNED.TIFF"
+        rows = lines // 4 - 520      # --overlap-lines default trims 520
+        check(_tiff_shape(path) == (BW, rows, 4),
+              f"aligned TIFF shape {_tiff_shape(path)}")
+        img = tiff.read_tiff(str(path))
+        for b, (cx, cy, rb) in enumerate(calls_by["align"]):
+            src = torch.from_numpy(
+                rrc_oracle(mss_h[b], *kb[f"msb{b + 1}"])).to(dev)
+            plain = _plain_remap(resample, src, cx, cy, rb)[520:].cpu()
+            ch = [2, 1, 0, 3].index(b)       # cv::imwrite's BGRA order
+            check(np.array_equal(img[..., ch], plain.numpy()),
+                  f"align: TIFF channel {ch} != plain remap of band {b + 1}")
+        say("[files] align: ALIGNED.TIFF channels [2,1,0,3] == plain route "
+            "of bands 1-4 (0 DN)")
+        del img
+
+        # 3. stitch PAN1 with the dy = 3 pair's prestitched PAN2
+        st_path = tmp / "STITCHED.RAW"
+        run("stitch", ["stitch", "--image1", str(files["CMOS1.PAN"]),
+                       "--image2", str(tmp / "prestitch_dy3"
+                                       / "CMOS2A.PAN.RRC.PRESTT.RAW"),
+                       "-o", str(st_path), "-c", str(FOLD_COLS)])
+        half = W - FOLD_COLS // 2
+        st = _raw(st_path, 2 * half)
+        check(st.shape == (lines, 2 * half), f"stitched shape {st.shape}")
+        check(np.array_equal(st[:, :half], pan1_h[:, :half]),
+              "stitched left half != PAN1")
+        check(all(v == 0 for v in launches["stitch"].values()),
+              "stitch launched a kernel")
+        say(f"[files] stitch: width {2 * half}, left half == PAN1 byte for "
+            "byte")
+    finally:
+        restore()
+    check(launches["prestitch_dy3"]["row_pass"] == 0
+          and launches["align"]["row_pass"] == 0,
+          "kernel (e) launched outside the dy = 9 prestitch")
+    return {k: sum(n[k] for n in launches.values())
+            for k in _build.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the device time of one forward goes
 # ---------------------------------------------------------------------------
 
 _KERNEL_CLASSES = (
+    ("row_pass_kernel", "kernel (e) row_pass"),
     ("crosspower_kernel", "kernel (b) crosspower"),
     ("stitch_tail_kernel", "kernel (d) stitch_tail"),
     ("remap_band_kernel", "kernel (c) remap_band"),
@@ -604,7 +841,8 @@ def main() -> int:
     say(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("entry function", "registers", "spill",
+                                   "error")):
             say(f"[build] {line.strip()}")
 
     if args == ["--profile"]:
@@ -617,10 +855,20 @@ def main() -> int:
     phase_kernels(dev, records)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="oip_smoke_") as tmp:
+        # one log for phases 3 and 5: the logger opens LOGFILE once
         os.environ["LOGFILE"] = os.path.join(tmp, "oip.log")
-        launches = phase_cli(dev, Path(tmp))
-    torch.cuda.empty_cache()
-    phase_pipeline(dev, power)
+        scene_dir, files_dir = Path(tmp, "scene"), Path(tmp, "files")
+        scene_dir.mkdir()
+        launches = phase_cli(dev, scene_dir)
+        shutil.rmtree(scene_dir)
+        torch.cuda.empty_cache()
+        phase_pipeline(dev, power)
+        torch.cuda.empty_cache()
+        files_dir.mkdir()
+        files_launches = phase_files(dev, files_dir)
+    launches = {k: launches[k] + files_launches[k] for k in launches}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was never launched in phases 3 and 5: {launches}")
 
     replaces = {
         "rrc": ("opticalimageprocessor_tpu_torch/csrc/rrc.cu",
@@ -631,6 +879,8 @@ def main() -> int:
                        "opticalimageprocessor_tpu/ops/resample.py:752"),
         "stitch_tail": ("opticalimageprocessor_tpu_torch/csrc/stitch_tail.cu",
                         "opticalimageprocessor_tpu/ops/resample.py:1149"),
+        "row_pass": ("opticalimageprocessor_tpu_torch/csrc/row_pass.cu",
+                     "opticalimageprocessor_tpu/ops/resample.py:652"),
     }
     kernels = []
     for name, (source, repl) in replaces.items():

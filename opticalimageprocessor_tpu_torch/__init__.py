@@ -1,12 +1,13 @@
-"""opticalimageprocessor_tpu_torch -- the PyTorch/CUDA port of the
-``scene`` pipeline for NVIDIA Hopper (H100).
+"""opticalimageprocessor_tpu_torch -- the PyTorch/CUDA port for NVIDIA
+Hopper (H100) of the ``scene`` pipeline and of the file commands in fast
+mode (``prestitch``, the default registration + alignment, ``stitch``).
 
 Plain tensor code is PyTorch; every kernel the JAX package wrote in Pallas
-for the TPU on this path is a hand-written CUDA C++ kernel under
-``csrc/``, built with ``nvcc`` on first use (``_build``) and launched on
-CUDA tensors.  CPU tensors take each kernel's plain PyTorch version.  The
-JAX package ``opticalimageprocessor_tpu`` stays the reference; this
-package never imports jax.
+for the TPU is a hand-written CUDA C++ kernel under ``csrc/``, built with
+``nvcc`` on first use (``_build``) and launched on CUDA tensors.  CPU
+tensors take each kernel's plain PyTorch version.  The JAX package
+``opticalimageprocessor_tpu`` stays the reference; this package never
+imports jax.
 """
 
 __version__ = "0.1.0"

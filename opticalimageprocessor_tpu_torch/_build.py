@@ -37,6 +37,7 @@ LAUNCHES: dict[str, int] = {
     "crosspower": 0,
     "remap_band": 0,
     "stitch_tail": 0,
+    "row_pass": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,6 +55,7 @@ _SIGNATURES = {
     "oip_stitch_tail": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
     ],
+    "oip_row_pass": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

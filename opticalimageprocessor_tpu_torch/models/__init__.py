@@ -1,2 +1,3 @@
-"""The port's scene pipeline (``device_pipeline.ScenePipeline``) and its
-file-level entry point (``scene.run_scene``)."""
+"""The port's pipelines: the scene pipeline (``device_pipeline.ScenePipeline``,
+``scene.run_scene``) and the file commands' fast routes
+(``preprocessor.PreProcessor``, ``stitcher.Stitcher`` and ``stitch``)."""

@@ -1,10 +1,13 @@
-"""Phase-correlation pieces of the fast registration, in PyTorch.
+"""Phase correlation in PyTorch.
 
-Counterpart of ``opticalimageprocessor_tpu/ops/phasecorr.py``'s fast path:
-spectra through ``torch.fft`` (cuFFT on the card) instead of the TPU's
-DFT-as-matmul (``ops/fft_mxu``), the spectral x4 band upsample, and the
-windowed correlation peak with its 5x5 centroid.  Spectra are complex
-tensors; the JAX functions' (re, im) pairs map to ``.real``/``.imag``.
+Counterpart of ``opticalimageprocessor_tpu/ops/phasecorr.py``: spectra
+through ``torch.fft`` (cuFFT on the card) instead of the TPU's
+DFT-as-matmul (``ops/fft_mxu``); the fast registration's pieces (the
+spectral x4 band upsample, the windowed correlation peak with its 5x5
+centroid) and the full-surface ``cv::phaseCorrelate``
+(:func:`phase_correlate`, :func:`phase_correlate_batch`) of the file
+commands.  Spectra are complex tensors; the JAX functions' (re, im) pairs
+map to ``.real``/``.imag``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,33 @@ import torch.nn.functional as F
 from .resample import _X4_BASE, _X4_W
 
 _EPS64_F32 = float(np.float32(np.finfo(np.float64).eps))
+# float32 bytes of padded tiles per phase_correlate_batch group
+_BATCH_BYTES = 1 << 30
+
+
+def get_optimal_dft_size(n: int) -> int:
+    """Smallest integer >= n whose only prime factors are 2, 3, 5
+    (``cv::getOptimalDFTSize``).  Copied from
+    ``opticalimageprocessor_tpu/ops/cv_exact.py::get_optimal_dft_size``
+    (importing it would load jax)."""
+    if n <= 1:
+        return max(n, 1)
+    best = None
+    p5 = 1
+    while p5 < n * 2:
+        p53 = p5
+        while p53 < n * 2:
+            # smallest power of two >= n / p53
+            q = max(0, -(-n // p53))
+            p2 = 1
+            while p2 < q:
+                p2 <<= 1
+            cand = p53 * p2
+            if cand >= n and (best is None or cand < best):
+                best = cand
+            p53 *= 3
+        p5 *= 5
+    return int(best)
 
 
 def rfft2_padded(x: torch.Tensor, pad_to: tuple[int, int]) -> torch.Tensor:
@@ -161,11 +191,31 @@ def peak_from_spectra_windowed(
 
 
 def _centroid_on_window(corr: torch.Tensor, win_y: int, win_x: int):
-    """Arg-max (first maximum, like ``jnp.argmax``) + 5x5 weighted centroid
-    on (..., 2*win_y+1, 2*win_x+1) windowed surfaces; returns (dx, dy,
-    response), each shaped like the batch dims."""
-    wy = 2 * win_y + 1
-    wx = 2 * win_x + 1
+    """Arg-max + 5x5 weighted centroid on (..., 2*win_y+1, 2*win_x+1)
+    windowed surfaces; returns (dx, dy, response), each shaped like the
+    batch dims."""
+    cxc, cyc, s = _argmax_centroid(corr)
+    # window coordinate w maps to shift s = w - win (cv::phaseCorrelate sign)
+    return cxc - win_x, cyc - win_y, s
+
+
+def _peak_and_centroid(corr: torch.Tensor):
+    """Arg-max + 5x5 centroid on (..., M, N) fftshifted full surfaces
+    (``cv::phaseCorrelate``); returns (dx, dy, response) shaped like the
+    batch dims."""
+    M, N = corr.shape[-2], corr.shape[-1]
+    cxc, cyc, s = _argmax_centroid(corr)
+    return N / 2.0 - cxc, M / 2.0 - cyc, s
+
+
+def _argmax_centroid(corr: torch.Tensor):
+    """Arg-max (row-major first maximum, like ``cv::minMaxLoc`` and
+    ``jnp.argmax``) + the 5x5 weighted centroid around it, clipped at the
+    surface's edges, of (..., H, W) surfaces; returns the centroid's
+    (column, row) and the window sum, each shaped like the batch dims.
+    The sum gets float64 eps (as float32) before dividing, like OpenCV's
+    weightedCentroid."""
+    wy, wx = corr.shape[-2], corr.shape[-1]
     batch = corr.shape[:-2]
     flat = corr.reshape(-1, wy * wx)
     peak = torch.argmax(flat, dim=1)
@@ -188,9 +238,39 @@ def _centroid_on_window(corr: torch.Tensor, win_y: int, win_x: int):
     s_eps = s + _EPS64_F32
     cxc = (winm * cc.to(winm.dtype)).sum(dim=(1, 2)) / s_eps
     cyc = (winm * rr.to(winm.dtype)).sum(dim=(1, 2)) / s_eps
-    # window coordinate w maps to shift s = w - win (cv::phaseCorrelate sign)
-    return (
-        (cxc - win_x).reshape(batch),
-        (cyc - win_y).reshape(batch),
-        s.reshape(batch),
-    )
+    return cxc.reshape(batch), cyc.reshape(batch), s.reshape(batch)
+
+
+def peak_from_spectra(fa: torch.Tensor, fb: torch.Tensor,
+                      pad_to: tuple[int, int]):
+    """Cross-power spectrum -> correlation peak (dx, dy, response), given
+    the (..., M, N//2 + 1) half spectra of the two tiles: whitened
+    cross-power, inverse rfft2, fftshift, arg-max and 5x5 centroid."""
+    M, N = pad_to
+    corr = torch.fft.irfft2(whitened_crosspower(fa, fb), s=(M, N))
+    return _peak_and_centroid(torch.fft.fftshift(corr, dim=(-2, -1)))
+
+
+def phase_correlate(a, b):
+    """``cv::phaseCorrelate`` of one (H, W) pair, zero-padded to the
+    optimal DFT size; returns python floats (dx, dy, response)."""
+    dx, dy, r = phase_correlate_batch(torch.as_tensor(a)[None],
+                                      torch.as_tensor(b)[None])
+    return float(dx[0]), float(dy[0]), float(r[0])
+
+
+def phase_correlate_batch(a: torch.Tensor, b: torch.Tensor):
+    """``cv::phaseCorrelate`` over a leading axis: (T, H, W) x (T, H, W)
+    -> (dx[T], dy[T], response[T]) float32 tensors on the inputs' device.
+    Tiles go through the transforms in groups of about
+    :data:`_BATCH_BYTES` of padded float32, bounding device memory."""
+    T, h, w = a.shape
+    M, N = get_optimal_dft_size(h), get_optimal_dft_size(w)
+    group = max(1, _BATCH_BYTES // (4 * M * N))
+    outs = []
+    for i in range(0, T, group):
+        fa = rfft2_padded(a[i:i + group], (M, N))
+        fb = rfft2_padded(b[i:i + group], (M, N))
+        outs.append(peak_from_spectra(fa, fb, (M, N)))
+        del fa, fb
+    return tuple(torch.cat([o[k] for o in outs]) for k in range(3))

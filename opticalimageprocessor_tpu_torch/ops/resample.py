@@ -3,10 +3,13 @@
 Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``'s fast path:
 
 * :func:`upsample4_f32` -- the exact x4 ``cv::resize`` INTER_CUBIC float
-  path (scene synthesis and tests);
+  path (registration tiles, scene synthesis and tests), and
+  :func:`resize_cubic_f32` for any other size;
 * :func:`remap_band_fast_chunked` -- the per-band alignment resample,
   ``mapx = (cx1*xx + cx0 + xx)/4``, ``mapy = y + G(x)``,
-  ``G = (cy2*xx^2 + cy1*xx + cy0)/4``, xx = 4x: kernel (c) on CUDA;
+  ``G = (cy2*xx^2 + cy1*xx + cy0)/4``, xx = 4x: kernel (c) on CUDA for
+  ``row_bound <= 6``, else the staged :func:`remap_band_fast` (column
+  cubic in PyTorch, then the vertical pass, kernel (e) on CUDA);
 * :func:`remap_const_stitch_chunked` -- RRC of both PANs, the prestitch
   translation of PAN2 and the seam concat: kernel (d) on CUDA.
 
@@ -84,6 +87,35 @@ def upsample4_f32(x: torch.Tensor) -> torch.Tensor:
     x = x.to(torch.float32)
     x = _upsample4_axis(x, x.dim() - 1)
     return _upsample4_axis(x, x.dim() - 2)
+
+
+def _resize_axis(x: torch.Tensor, axis: int, dn: int) -> torch.Tensor:
+    """``cv::resize`` INTER_CUBIC along one axis to ``dn`` samples: taps
+    and weights computed on the host (float64 coordinates, float32
+    weights), replicate-clamped, grouped accumulation order."""
+    sn = x.shape[axis]
+    fxx = (np.arange(dn, dtype=np.float64) + 0.5) * (sn / dn) - 0.5
+    sx = np.floor(fxx).astype(np.int64)
+    w = interpolate_cubic_f32((fxx - sx).astype(np.float32))     # (dn, 4)
+    taps = np.clip(sx[:, None] + np.arange(-1, 3)[None, :], 0, sn - 1)
+    shape = [1] * x.dim()
+    shape[axis % x.dim()] = dn
+
+    def term(j):
+        idx = torch.from_numpy(taps[:, j]).to(x.device)
+        wj = torch.from_numpy(np.ascontiguousarray(w[:, j])).to(x.device)
+        return x.index_select(axis, idx) * wj.reshape(shape)
+
+    return ((term(0) + term(1)) + term(2)) + term(3)
+
+
+def resize_cubic_f32(x: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """``cv::resize(src, (dst_w, dst_h), INTER_CUBIC)`` float32 path on
+    (..., H, W), horizontal then vertical (counterpart of the JAX
+    package's ``resize_cubic_f32``)."""
+    x = x.to(torch.float32)
+    x = _resize_axis(x, x.dim() - 1, dst_w)
+    return _resize_axis(x, x.dim() - 2, dst_h)
 
 
 def _cubic_weights_f32(t: torch.Tensor):
@@ -177,13 +209,18 @@ def _remap_band_plain(src, coeff_x, coeff_y, row_bound, block, halo):
     colg = _col_interp(src.to(torch.float32), tap0, w)
     cu = _row_pass_coeffs(_band_g(coeff_y, width), row_bound)
     padded = F.pad(colg, (0, 0, row_bound + 1, row_bound + 2))
-    acc = torch.zeros_like(colg)
-    for v in range(cu.shape[0]):
-        acc = acc + padded[v:v + rows] * cu[v]
-    return _round_u16(acc)
+    return _round_u16(_fast_row_pass_plain(padded, cu, rows))
 
 
 def _remap_band_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
+    if row_bound > ROW_OFF_BOUND_FAST:
+        # the gate of the TPU kernel (c): its window covers 2*rb + 4 <= 16
+        # tap rows; here shared memory would outgrow a block near rb = 19
+        raise ValueError(
+            f"remap_band_fast_chunked: kernel (c) takes row_bound <= "
+            f"{ROW_OFF_BOUND_FAST}, got {row_bound} (the staged "
+            "remap_band_fast takes larger bounds)"
+        )
     if src.dim() != 2 or coeff_x.shape != (2,) or coeff_y.shape != (3,):
         raise ValueError(
             "remap_band_fast_chunked: src must be 2-D, coeff_x (2,) and "
@@ -207,6 +244,96 @@ def _remap_band_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
     return out
 
 
+def _fast_row_pass_plain(padded: torch.Tensor, cu: torch.Tensor,
+                         rows: int) -> torch.Tensor:
+    """Plain PyTorch vertical pass: ``out[y, x] = sum_v cu[v, x] *
+    padded[y + v, x]`` from 0, in v order, each product and sum rounded
+    on its own (never a fused multiply-add)."""
+    acc = torch.zeros((rows, padded.shape[1]), dtype=torch.float32,
+                      device=padded.device)
+    for v in range(cu.shape[0]):
+        acc = acc + padded[v:v + rows] * cu[v]
+    return acc
+
+
+def _fast_row_pass_cuda(padded: torch.Tensor, cu: torch.Tensor,
+                        rows: int) -> torch.Tensor:
+    if padded.dim() != 2 or cu.dim() != 2 or cu.shape[1] != padded.shape[1] \
+            or padded.shape[0] != rows + cu.shape[0] - 1:
+        raise ValueError(
+            "fast_row_pass: padded must be (rows + U - 1, W) and cu (U, W); "
+            f"got {tuple(padded.shape)}, {tuple(cu.shape)}, rows {rows}"
+        )
+    _build.require_cuda("fast_row_pass", padded, cu)
+    if padded.dtype != torch.float32 or cu.dtype != torch.float32:
+        raise ValueError("fast_row_pass: padded and cu must be float32")
+    padded, cu = padded.contiguous(), cu.contiguous()
+    out = torch.empty((rows, padded.shape[1]), dtype=torch.float32,
+                      device=padded.device)
+    _build.launch(
+        "row_pass", "oip_row_pass", padded.data_ptr(), cu.data_ptr(),
+        out.data_ptr(), rows, padded.shape[1], cu.shape[0],
+        _build.stream_of(padded),
+    )
+    return out
+
+
+def fast_row_pass(padded: torch.Tensor, cu: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """The staged remap's vertical pass (the contract of the JAX package's
+    ``_fast_row_pass_pallas``): ``padded`` (rows + U - 1, W) float32,
+    ``cu`` (U, W) float32 from :func:`_row_pass_coeffs`; returns (rows, W)
+    float32.  Kernel (e) on CUDA tensors, the plain version on CPU ones."""
+    if padded.device.type == "cpu":
+        return _fast_row_pass_plain(padded, cu, rows)
+    return _fast_row_pass_cuda(padded, cu, rows)
+
+
+def remap_band_fast(
+    src: torch.Tensor,
+    coeff_x,
+    coeff_y,
+    row_bound: int = ROW_OFF_BOUND_FAST,
+    g_override: torch.Tensor | None = None,
+    col_block: int | None = None,
+    col_halo: int | None = None,
+    chunk_rows: int | None = None,
+) -> torch.Tensor:
+    """Staged fast remap of a (rows, W) uint16 band: the column cubic
+    (plain PyTorch), the per-column vertical weights (U = 2*row_bound + 4
+    rows, taps beyond the bound dropped), the vertical pass
+    (:func:`fast_row_pass`), then rint/clip to uint16.  Rows outside the
+    strip read 0.  ``g_override`` replaces the per-column G(x) of
+    ``coeff_y``.
+
+    ``chunk_rows`` bounds the float32 working set: each chunk's column
+    cubic covers its rows plus the row_bound + 1 real rows above and
+    row_bound + 2 below that its vertical taps reach, so any chunking gives
+    the same result as the whole strip."""
+    rows, width = src.shape
+    block = col_block_size(width, col_block)
+    halo = COL_HALO if col_halo is None else col_halo
+    cx = torch.as_tensor(coeff_x, dtype=torch.float32, device=src.device)
+    tap0, w = _col_taps(cx, width, block, halo)
+    if g_override is None:
+        cy = torch.as_tensor(coeff_y, dtype=torch.float32, device=src.device)
+        g_override = _band_g(cy, width)
+    cu = _row_pass_coeffs(g_override, row_bound)
+    chunk = chunk_rows or max(rows, 1)
+    out = torch.empty_like(src)
+    for a in range(0, rows, chunk):
+        b = min(a + chunk, rows)
+        lo, hi = a - row_bound - 1, b + row_bound + 2
+        colg = _col_interp(src[max(lo, 0):min(hi, rows)].to(torch.float32),
+                           tap0, w)
+        padded = F.pad(colg, (0, 0, max(0, -lo), max(0, hi - rows)))
+        out[a:b] = _round_u16(fast_row_pass(padded, cu, b - a))
+    return out
+
+
+STAGED_CHUNK_ROWS = 8192   # rows per staged-remap chunk (the JAX prestitch's)
+
+
 def remap_band_fast_chunked(
     src: torch.Tensor,
     coeff_x,
@@ -220,8 +347,14 @@ def remap_band_fast_chunked(
 
     ``row_bound`` bounds |G| (vertical taps beyond it are dropped),
     ``col_block``/``col_halo`` shape the column taps' windows (shifts
-    beyond the halo are dropped).  Where the JAX function streams row
-    chunks, the kernel covers the band in one launch."""
+    beyond the halo are dropped).  Like the JAX function, ``row_bound <=
+    6`` takes the fused kernel (c), one launch over the band, and larger
+    bounds the staged :func:`remap_band_fast` in
+    :data:`STAGED_CHUNK_ROWS`-row chunks."""
+    if row_bound > ROW_OFF_BOUND_FAST:
+        return remap_band_fast(src, coeff_x, coeff_y, row_bound,
+                               col_block=col_block, col_halo=col_halo,
+                               chunk_rows=STAGED_CHUNK_ROWS)
     width = src.shape[-1]
     block = col_block_size(width, col_block)
     halo = COL_HALO if col_halo is None else col_halo

@@ -18,12 +18,17 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch",
     "opticalimageprocessor_tpu_torch._build",
     "opticalimageprocessor_tpu_torch.cli",
+    "opticalimageprocessor_tpu_torch.io",
+    "opticalimageprocessor_tpu_torch.io.streaming",
     "opticalimageprocessor_tpu_torch.models",
     "opticalimageprocessor_tpu_torch.models.device_pipeline",
+    "opticalimageprocessor_tpu_torch.models.preprocessor",
     "opticalimageprocessor_tpu_torch.models.scene",
+    "opticalimageprocessor_tpu_torch.models.stitcher",
     "opticalimageprocessor_tpu_torch.ops",
     "opticalimageprocessor_tpu_torch.ops.phasecorr",
     "opticalimageprocessor_tpu_torch.ops.phasecorr_cuda",
+    "opticalimageprocessor_tpu_torch.ops.polyfit",
     "opticalimageprocessor_tpu_torch.ops.resample",
     "opticalimageprocessor_tpu_torch.ops.rrc",
 ]
@@ -55,7 +60,7 @@ def _meta(shape, dtype):
 
 
 @pytest.mark.parametrize("which", ["rrc", "crosspower", "remap_band",
-                                   "stitch_tail"])
+                                   "stitch_tail", "row_pass"])
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     """A tensor off the CPU never takes the plain version: without a CUDA
     device the wrapper raises (here with meta tensors, which no kernel
@@ -77,6 +82,9 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, which):
                 _meta((32, 128), u16), torch.zeros(2), torch.zeros(3), 3,
                 128, 16,
             )
+        elif which == "row_pass":
+            resample.fast_row_pass(_meta((55, 128), torch.float32),
+                                   _meta((24, 128), torch.float32), 32)
         else:
             resample._stitch_tail_cuda(
                 _meta((32, 128), u16), _meta((32, 128), u16),
@@ -87,7 +95,7 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, which):
 
 
 @pytest.mark.parametrize("which", ["crosspower", "remap_band",
-                                   "stitch_tail"])
+                                   "stitch_tail", "row_pass"])
 def test_kernel_wrappers_reject_mismatched_shapes(which):
     """Shapes that would send a kernel out of bounds are refused before
     any launch (here on meta tensors, checked ahead of the device)."""
@@ -105,6 +113,9 @@ def test_kernel_wrappers_reject_mismatched_shapes(which):
                 _meta((32, 128), u16), torch.zeros(2), torch.zeros(2), 3,
                 128, 16,
             )
+        elif which == "row_pass":
+            resample._fast_row_pass_cuda(_meta((54, 128), torch.float32),
+                                         _meta((24, 128), torch.float32), 32)
         else:
             resample._stitch_tail_cuda(
                 _meta((32, 128), u16), _meta((16, 128), u16),
@@ -156,6 +167,36 @@ def test_library_path_keys_on_sources(monkeypatch, tmp_path):
     assert p1 == _build._library_path()
     (src / "a.cu").write_text("// b\n")
     assert _build._library_path() != p1
+
+
+@pytest.mark.parametrize("halo", [0, 3])
+def test_stream_process_writes_the_strip_in_order(rng, tmp_path, halo):
+    """stream_process on the CPU: sections with their clipped halo rows
+    reach ``fn``, and ``write`` gets every payload in line order."""
+    from opticalimageprocessor_tpu.io.raw import RawStrip
+    from opticalimageprocessor_tpu_torch.io.streaming import stream_process
+
+    img = rng.integers(0, 65536, (103, 16), dtype=np.uint16)
+    img.tofile(tmp_path / "s.RAW")
+    strip = RawStrip(str(tmp_path / "s.RAW"), 16)
+    seen, out = [], []
+
+    def fn(sec):
+        seen.append((sec.line_offset, sec.lines, sec.halo_top,
+                     sec.halo_bottom))
+        np.testing.assert_array_equal(
+            sec.data.numpy(),
+            img[sec.line_offset - sec.halo_top:
+                sec.line_offset + sec.lines + sec.halo_bottom])
+        payload = sec.data[sec.halo_top:sec.halo_top + sec.lines]
+        return (payload.to(torch.int32) ^ 0x5A5A).to(torch.uint16)
+
+    n = stream_process(strip, fn, out.append, 40, "cpu", halo)
+    assert n == 103
+    assert [s[:2] for s in seen] == [(0, 40), (40, 40), (80, 23)]
+    assert seen[0][2] == 0 and seen[-1][3] == 0
+    assert all(s[2] == halo for s in seen[1:])
+    np.testing.assert_array_equal(np.concatenate(out), img ^ 0x5A5A)
 
 
 def test_cpu_tensors_take_the_plain_versions(rng):

@@ -141,3 +141,65 @@ def test_stitch_tail_rejects_dy_beyond_row_bound(rng):
             *(torch.from_numpy(x) for x in (pan1, pan2, k1, b1, k2, b2)),
             0.0, 6.5, 32, row_bound=8, col_block=128, col_halo=16,
         )
+
+
+@pytest.mark.parametrize("row_bound,staged", [(6, False), (10, True)])
+def test_router_sends_wide_bounds_to_the_staged_remap(rng, monkeypatch,
+                                                      row_bound, staged):
+    """Like the JAX function, remap_band_fast_chunked takes kernel (c)'s
+    route for row_bound <= 6 and the staged remap_band_fast above it."""
+    calls = []
+    real = resample.remap_band_fast
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("chunk_rows"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(resample, "remap_band_fast", spy)
+    src = torch.from_numpy(rng.integers(0, 65536, (64, 256), np.uint16))
+    resample.remap_band_fast_chunked(src, np.zeros(2, np.float32),
+                                     np.zeros(3, np.float32), row_bound)
+    assert calls == ([resample.STAGED_CHUNK_ROWS] if staged else [])
+
+
+def test_kernel_c_refuses_row_bound_above_6():
+    """_remap_band_cuda refuses row_bound 7 before it looks at the device
+    (kernel (c)'s gate, as the TPU kernel's)."""
+    with pytest.raises(ValueError, match="row_bound <= 6"):
+        resample._remap_band_cuda(
+            torch.zeros((32, 128), dtype=torch.uint16), torch.zeros(2),
+            torch.zeros(3), 7, 128, 16,
+        )
+
+
+def test_remap_band_row_bound_10_matches_jax(rng):
+    """The staged route at row_bound 10 against JAX's chunked remap
+    (128-row chunks), with a dy polynomial whose floor(G) runs 7..9 across
+    the columns: within 1 DN on < 1% of pixels (XLA:CPU contracts
+    multiply-adds, ROADMAP Queue 3)."""
+    src = rng.integers(0, 65536, (300, 768), dtype=np.uint16)
+    cx = np.asarray([3.7, -2.1e-4], np.float32)
+    cy = np.asarray([36.0, 2.0e-3, -1.5e-6], np.float32)
+    g = np.asarray(jres._band_g(cy, 768))
+    assert set(np.floor(g).astype(int)) == {7, 8, 9}
+    want = np.asarray(jres.remap_band_fast_chunked(
+        jnp.asarray(src), cx, cy, chunk_rows=128, row_bound=10))
+    got = resample.remap_band_fast_chunked(
+        torch.from_numpy(src), cx, cy, row_bound=10).numpy()
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01, (d.max(), (d > 0).mean())
+
+
+@pytest.mark.parametrize("shape", [(62, 40, 250, 161), (64, 48, 40, 30)])
+def test_resize_cubic_matches_oracle_and_jax(rng, shape):
+    """General-size cv::resize (the registration's upsample when slices
+    give no exact x4 tiles): bit-exact to the float32 oracle, within 4 ulp
+    of JAX on XLA:CPU (as upsample4_f32)."""
+    h, w, dh, dw = shape
+    band = rng.integers(2000, 42000, (h, w)).astype(np.float32)
+    got = resample.resize_cubic_f32(torch.from_numpy(band), dh, dw).numpy()
+    np.testing.assert_array_equal(
+        got, cv_exact.resize_cubic_f32_exact(band, dh, dw))
+    want = np.asarray(jres.resize_cubic_f32(jnp.asarray(band), dh, dw))
+    ulp = np.spacing(np.float32(np.abs(want).max()))
+    assert np.abs(got - want).max() <= 4 * ulp
