@@ -16,8 +16,13 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit, torch/CUDA versions, and the build of
    the five hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it, with its stated tolerance, and both
-   timed with CUDA events;
+   shapes the main paths give it, with its stated tolerance, both timed
+   with CUDA events, beside the kernel's bound (the bytes it must move at
+   3.35 TB/s against its operations at the card's peak for their type);
+   kernels (b) and (d) also at the 32768-line scene's shapes (20 tiles;
+   a 32768-row pair), and (b) beside cuBLAS's bare bf16 GEMM of the same
+   real-ified product ("GEMM only, no whitening"), which the port never
+   calls;
 3. the CLI entry (``cli.main(["scene", ...])``) on a 16384-line scene of
    RAW files built like bench.py's synthesis, checking the outputs, the
    recovered band shifts and stt translation, and that the stitched left
@@ -34,7 +39,9 @@ Phases (any failure exits non-zero and prints no result line):
    plain route at 0 DN, and the stitched raster's left half against PAN1,
    with the launch counts read around each command.
 
-The last two lines of standard output are the kernels' JSON record and
+The last two lines of standard output are the kernels' JSON record
+(launches over phases 3 and 5, error, kernel, plain and bound ms at phase
+2's shapes, plus the scene shapes' ms and bound for (b) and (d)) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,6 +102,47 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
+# bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+
+def bound(nbytes: float, **ops) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, against each class of
+    operations at its peak (``ops``: name -> (count, rate)); the larger
+    one bounds."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    for name, (count, rate) in ops.items():
+        times[name] = count / rate * 1e3
+    by = max(times, key=times.get)
+    return dict(bound_ms=times[by], bound_by=by)
+
+
+def crosspower_bound(tiles, bands, M, keep, m, n, wx) -> dict:
+    """Kernel (b): the PAN and band spectra (complex64) and Hr, Hc read, the
+    float32 real and imaginary outputs written; the bf16 GEMM (2 FLOP a
+    multiply-add of the (T*NB*M, 2*keep) x (2*keep, 2*wx) real product)
+    and the float32 whitening (~40 FLOP an element)."""
+    nbytes = 8 * (tiles * M * keep + tiles * bands * m * n + M + keep) \
+        + 2 * 4 * tiles * bands * M * wx
+    r = bound(nbytes,
+              operations=(8 * tiles * bands * M * keep * wx, BF16_FLOPS),
+              whitening=(40 * tiles * bands * M * keep, F32_FLOPS))
+    if r["bound_by"] != "bytes":
+        r["bound_by"] = "operations"
+    return r
+
+
+def stitch_bound(rows, width, fold) -> dict:
+    """Kernel (d): both PANs read (uint16), the (rows, 2*(W - fold)) raster
+    written, four float64 parameter rows."""
+    return bound(2 * 2 * rows * width + 2 * rows * 2 * (width - fold)
+                 + 4 * 8 * width)
 
 
 def dn_diff(a, b):
@@ -177,7 +225,10 @@ def phase_kernels(dev, records):
         max_abs_err=float(dmax),
         ms=time_ms(lambda: rrc.rrc_apply(mss, km, bm), 20),
         plain_ms=time_ms(lambda: rrc._rrc_plain(mss, km, bm), 5),
+        library_ms=None,
         shape="(4, 8192, 3072) u16",
+        # uint16 in and out, float64 (k, b) per column
+        **bound(4 * mss.numel() + 16 * km.numel()),
     )
     del mss
     say(f"[a] rrc: byte-exact; {records['rrc']}")
@@ -196,7 +247,8 @@ def phase_kernels(dev, records):
     hc = phasecorr.filter_response(n, 4, dev)[:keep]
     ex_c, ex_s = phasecorr.eval_consts(N, keep, win, False, dev)
     kargs = (fpan, fband, hr, hc, ex_c, ex_s)
-    dr_k, di_k = pcc._crosspower_cuda(*kargs)
+    packed = pcc.packed_eval_operands(N, keep, win, dev)
+    dr_k, di_k = pcc._crosspower_cuda(*kargs, packed)
     dr_p, di_p = pcc._crosspower_plain(*kargs)
     torch.cuda.synchronize()
     corr_k = phasecorr.contract_rows(dr_k, di_k, M, N, win)
@@ -223,14 +275,54 @@ def phase_kernels(dev, records):
           f"crosspower surface {surf:.3g} / window {window:.3g} vs plain "
           "above 1e-4")
     check(bool((peak_k[2] >= 0.4).all()), "crosspower responses below 0.4")
+    wx = 2 * win + 1
     records["crosspower"] = dict(
         max_abs_err=d_shift, surface_rel_err=surf, window_rel_err=window,
-        ms=time_ms(lambda: pcc._crosspower_cuda(*kargs), 5),
+        ms=time_ms(lambda: pcc._crosspower_cuda(*kargs, packed), 5),
         plain_ms=time_ms(lambda: pcc._crosspower_plain(*kargs), 2),
+        library_ms=None,
         shape="T=2 tiles x 4 bands, M=16000 keep=615 m=4000 n=307 win=64",
+        **crosspower_bound(2, 4, M, keep, m, n, wx),
     )
     del fpan, fband, dr_k, di_k, dr_p, di_p, pan, bands
+    torch.cuda.empty_cache()
     say(f"[b] {records['crosspower']}")
+    # the scene's shape: 20 tiles (2 sections x 10 slices of a 32768-line
+    # scene) x 4 bands, kernel only
+    tiles = 20
+    base = torch.from_numpy(
+        rng.integers(2000, 42000, (tiles, m, n), dtype=np.int32)).to(dev)
+    bands = torch.stack(
+        [torch.roll(base, (b % 2, b - 1), (1, 2)) for b in range(4)], dim=1)
+    fpan = phasecorr.rfft2_padded(resample.upsample4_f32(base), (M, N))
+    fband = phasecorr.band_full_spectrum_small(bands)
+    del base, bands
+    kargs = (fpan, fband, hr, hc, ex_c, ex_s)
+    scene = dict(
+        ms=time_ms(lambda: pcc._crosspower_cuda(*kargs, packed), 5),
+        shape="T=20 tiles x 4 bands, M=16000 keep=615 m=4000 n=307 win=64",
+        **crosspower_bound(tiles, 4, M, keep, m, n, wx))
+    del fpan, fband
+    torch.cuda.empty_cache()
+    say(f"[b] scene shape: {json.dumps(scene)}")
+    records["crosspower"].update(scene_ms=scene["ms"],
+                                 scene_bound_ms=scene["bound_ms"])
+    # yardstick for the product alone: cuBLAS's bf16 GEMM of the real-ified
+    # operands, (T*4*M, 2*624) x (2*624, 272), no whitening, at both shapes
+    # (the port never calls it)
+    kp2 = 2 * pcc.KX_CHUNK * (-(-keep // pcc.KX_CHUNK))
+    gemm = {}
+    for t in (2, tiles):
+        a = torch.randn((t * 4 * M, kp2), device=dev).to(torch.bfloat16)
+        bm_ = torch.randn((kp2, 2 * pcc.N_PAD), device=dev).to(torch.bfloat16)
+        gemm[t] = time_ms(lambda: torch.matmul(a, bm_), 5)
+        del a, bm_
+        torch.cuda.empty_cache()
+    say(f"[b] GEMM only, no whitening (torch.matmul bf16 ({tiles}*4*{M}, "
+        f"{kp2}) x ({kp2}, {2 * pcc.N_PAD})): T=2 {gemm[2]:.4f} ms, "
+        f"T={tiles} {gemm[tiles]:.4f} ms")
+    records["crosspower"].update(gemm_only_ms=gemm[2],
+                                 scene_gemm_only_ms=gemm[tiles])
 
     # (c) band remap: one 8192 x 3072 band, pinned coefficients
     band = torch.from_numpy(
@@ -250,7 +342,9 @@ def phase_kernels(dev, records):
         ms=time_ms(lambda: resample._remap_band_cuda(band, cx, cy, **kw), 20),
         plain_ms=time_ms(
             lambda: resample._remap_band_plain(band, cx, cy, **kw), 5),
+        library_ms=None,
         shape="(8192, 3072) u16, row_bound 3, block 128, halo 16",
+        **bound(4 * band.numel()),
     )
     del band
     say(f"[c] {records['remap_band']}")
@@ -285,10 +379,36 @@ def phase_kernels(dev, records):
         max_abs_err=float(worst),
         ms=time_ms(lambda: resample._stitch_tail_cuda(*a, **skw), 20),
         plain_ms=time_ms(lambda: resample._stitch_tail_plain(*a, **skw), 3),
+        library_ms=None,
         shape="(4096, 12288) u16 pair -> (4096, 24376)",
+        **stitch_bound(rows, W, fold),
     )
     del p1, p2
+    torch.cuda.empty_cache()
     say(f"[d] {records['stitch_tail']}")
+    # the scene's shape: a 32768-line pair, block 128, halo 16
+    rows = 32768
+    p1 = torch.from_numpy(
+        rng.integers(0, 65536, (rows, W), dtype=np.uint16)).to(dev)
+    p2 = torch.from_numpy(
+        rng.integers(0, 65536, (rows, W), dtype=np.uint16)).to(dev)
+    a = (p1, p2, k1, b1, k2, b2, -2.7, 1.6, fold)
+    got = resample._stitch_tail_cuda(*a, **skw)
+    plain = resample._stitch_tail_plain(*a, **skw)
+    torch.cuda.synchronize()
+    dmax = dn_diff(got, plain)[0]
+    del got, plain
+    check(dmax == 0, "stitch tail at 32768 rows vs plain")
+    scene = dict(
+        ms=time_ms(lambda: resample._stitch_tail_cuda(*a, **skw), 10),
+        max_abs_err=float(dmax),
+        shape="(32768, 12288) u16 pair -> (32768, 24376)",
+        **stitch_bound(rows, W, fold))
+    del p1, p2
+    torch.cuda.empty_cache()
+    say(f"[d] scene shape: {json.dumps(scene)}")
+    records["stitch_tail"].update(scene_ms=scene["ms"],
+                                  scene_bound_ms=scene["bound_ms"])
 
     # (e) row pass: one 8192-row chunk of the staged remap at the camera
     # width, row bound 10 (U = 24), floor(G) running 7..9 across the strip
@@ -314,7 +434,12 @@ def phase_kernels(dev, records):
                    20),
         plain_ms=time_ms(
             lambda: resample._fast_row_pass_plain(padded, cu, rows), 3),
+        library_ms=None,
         shape=f"padded ({rows + U - 1}, {W}) f32, U {U} -> ({rows}, {W})",
+        # float32 in (padded strip, weights) and out; U multiply-adds an
+        # output pixel
+        **bound(4 * (padded.numel() + cu.numel() + rows * W),
+                operations=(2 * U * rows * W, F32_FLOPS)),
     )
     del padded, got, plain
     say(f"[e] {records['row_pass']}")
@@ -888,7 +1013,11 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=repl,
             launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], shape=r["shape"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"],
+            **{k: r[k] for k in ("scene_ms", "scene_bound_ms", "gemm_only_ms",
+                                 "scene_gemm_only_ms") if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

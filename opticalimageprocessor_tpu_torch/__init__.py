@@ -6,8 +6,9 @@ Plain tensor code is PyTorch; every kernel the JAX package wrote in Pallas
 for the TPU is a hand-written CUDA C++ kernel under ``csrc/``, built with
 ``nvcc`` on first use (``_build``) and launched on CUDA tensors.  CPU
 tensors take each kernel's plain PyTorch version.  The JAX package
-``opticalimageprocessor_tpu`` stays the reference; this package never
-imports jax.
+``opticalimageprocessor_tpu`` stays the reference; this package imports
+nothing of it (its host modules -- constants, naming, the RRC CSV reader,
+RAW and TIFF IO, logging -- have copies here) and never imports jax.
 """
 
 __version__ = "0.1.0"

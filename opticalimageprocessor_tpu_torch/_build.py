@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels under ``csrc/``.
 
-The CUDA sources have a plain C interface and are compiled with ``nvcc``
-into one shared library the first time a kernel is launched, then loaded
-with ``ctypes``.  The library lands in ``_build/`` beside this file, named
+The CUDA sources have a plain C interface.  The first time a kernel is
+launched, every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library,
+loaded with ``ctypes``.  The library lands in ``_build/`` beside this file, named
 by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.  A failed build raises: there is no
 fallback to the plain PyTorch versions for CUDA tensors.
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -49,7 +50,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "oip_rrc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
     "oip_crosspower": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "oip_remap_band": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "oip_stitch_tail": [
@@ -100,16 +101,32 @@ def library() -> ctypes.CDLL:
         so = _library_path()
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                *[str(f) for f in sorted(CSRC.glob("*.cu"))],
+            nvcc = _nvcc()
+            tag = f"{so.stem}.{os.getpid()}"
+            sources = sorted(CSRC.glob("*.cu"))
+            objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in sources]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(f), "-o", str(o)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                for f, o in zip(sources, objs)
             ]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
+            logs = [p.communicate()[0] for p in procs]
+            build_log = "".join(logs)
+            failed = [f.name for f, p in zip(sources, procs) if p.returncode]
+            if not failed:
+                tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                res = subprocess.run(
+                    [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True)
+                build_log += res.stdout + res.stderr
+                failed = ["link"] if res.returncode else []
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if failed:
                 raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{build_log}"
+                    f"nvcc failed ({', '.join(failed)}):\n{build_log}"
                 )
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))

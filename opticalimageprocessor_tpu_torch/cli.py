@@ -25,14 +25,40 @@ from __future__ import annotations
 import argparse
 import sys
 
-from opticalimageprocessor_tpu import constants as C
-# the reference CLI's usage-error type, parse-time file check and stage
-# report (its module imports no jax)
-from opticalimageprocessor_tpu.cli import (
-    UsageError,
-    _print_stage_report,
-    _require_file,
-)
+import os
+
+from . import constants as C
+
+
+# UsageError, _require_file and _print_stage_report are copied from
+# opticalimageprocessor_tpu/cli.py
+class UsageError(ValueError):
+    pass
+
+
+def _require_file(path: str, opt: str) -> None:
+    """Parse-time ExistingFile check (CLI11 ->check(CLI::ExistingFile),
+    main.cpp:105/114-119/193-223): fail with a usage error (rc 254) before
+    any work starts."""
+    if path and not os.path.isfile(path):
+        raise UsageError(f"{opt}: File does not exist: {path}")
+
+
+def _print_stage_report() -> None:
+    """Per-stage seconds/MBps summary (the reference's ubiquitous
+    stop_watch/comma_sep instrumentation, aggregated)."""
+    from .utils.logging import olog, stage_report
+
+    rep = stage_report()
+    if not rep:
+        return
+    olog("==== stage report ====")
+    for name, st in rep.items():
+        olog(
+            "%-24s %8.3f s  %10.1f MBps  (%d calls)",
+            name, st["seconds"], st["MBps"] if st["bytes"] else 0.0,
+            st["calls"],
+        )
 
 
 def _add_port_flags(p: argparse.ArgumentParser, what: str) -> None:
@@ -315,12 +341,12 @@ def main(argv=None) -> int:
         print(f"USAGE ERROR: {e}.")
         return 254
     except (ValueError, RuntimeError, OSError) as e:
-        from opticalimageprocessor_tpu.utils.logging import loge
+        from .utils.logging import loge
 
         loge("%s.", e)
         return 2
     except Exception:  # noqa: BLE001 — reference maps unknown errors to 1
-        from opticalimageprocessor_tpu.utils.logging import loge
+        from .utils.logging import loge
 
         loge("UNKOWN FATAL ERROR OCCURED.")
         return 1

@@ -18,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from opticalimageprocessor_tpu.io.raw import RawStrip
+from .raw import RawStrip
 
 
 @dataclass

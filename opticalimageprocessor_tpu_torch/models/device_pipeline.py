@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from opticalimageprocessor_tpu.constants import (
+from ..constants import (
     CORRELATION_LINES,
     IBCV_DEF_THRESHOLD,
     IBCV_MIN_COUNT,

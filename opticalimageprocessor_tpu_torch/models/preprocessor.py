@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from opticalimageprocessor_tpu.constants import (
+from ..constants import (
     CORRELATION_LINES,
     IBCV_DEF_SECTIONS,
     IBCV_DEF_SLICES,
@@ -42,8 +42,8 @@ from opticalimageprocessor_tpu.constants import (
     RRC_STEM_EXT,
     TIFF_FILE_EXT,
 )
-from opticalimageprocessor_tpu.formats.naming import build_output_file_path
-from opticalimageprocessor_tpu.utils.logging import olog, rlog, stage
+from ..formats.naming import build_output_file_path
+from ..utils.logging import olog, rlog, stage
 
 from ..io import raw as raw_io
 from ..io import tiff as tiff_io

@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-from opticalimageprocessor_tpu.constants import (
+from ..constants import (
     BYTES_PER_PIXEL,
     IBCV_DEF_THRESHOLD,
     IBPA_STEM_EXT,
@@ -25,11 +25,11 @@ from opticalimageprocessor_tpu.constants import (
     PIXELS_PER_LINE,
     TIFF_FILE_EXT,
 )
-from opticalimageprocessor_tpu.formats.naming import build_output_file_path
-from opticalimageprocessor_tpu.formats.rrc_csv import load_rrc_params
-from opticalimageprocessor_tpu.io import raw as raw_io
-from opticalimageprocessor_tpu.io import tiff as tiff_io
-from opticalimageprocessor_tpu.utils.logging import logw, olog, stage
+from ..formats.naming import build_output_file_path
+from ..formats.rrc_csv import load_rrc_params
+from ..io import raw as raw_io
+from ..io import tiff as tiff_io
+from ..utils.logging import logw, olog, stage
 
 from .device_pipeline import (
     ScenePipeline,

@@ -25,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from opticalimageprocessor_tpu.constants import (
+from ..constants import (
     BYTES_PER_PIXEL,
     IBPA_DEFAULT_BATCHLINES,
     PIXELS_PER_LINE,
@@ -41,8 +41,8 @@ from opticalimageprocessor_tpu.constants import (
     STT_DEF_SECTIONS,
     TIFF_FILE_EXT,
 )
-from opticalimageprocessor_tpu.formats.naming import build_output_file_path
-from opticalimageprocessor_tpu.utils.logging import olog, rlog, stage
+from ..formats.naming import build_output_file_path
+from ..utils.logging import olog, rlog, stage
 
 from ..io import raw as raw_io
 from ..io import tiff as tiff_io

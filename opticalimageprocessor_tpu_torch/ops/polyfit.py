@@ -2,7 +2,7 @@
 
 Copied verbatim from ``opticalimageprocessor_tpu/ops/polyfit.py`` (a numpy
 module, but importing it through ``opticalimageprocessor_tpu.ops`` would
-load jax); only the constants import names the shared module.
+load jax); only the constants import names the port's copy.
 
 Reproduces the reference's NumCpp fits (preproc.h:514-550): for each MSS
 band, fit ``dx = c1*cx + c0`` (degree 1) and ``dy = c2*cx^2 + c1*cx + c0``
@@ -63,7 +63,7 @@ def fit_shift_models_filtered(
     Single source of truth for both the host ``PreProcessor`` and the
     sharded multi-chip align step, so their coefficients agree exactly.
     """
-    from opticalimageprocessor_tpu.constants import IBCV_MIN_COUNT
+    from ..constants import IBCV_MIN_COUNT
 
     valid = np.asarray(rs, np.float64) >= threshold
     n_valid = int(valid.sum())

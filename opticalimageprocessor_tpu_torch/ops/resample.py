@@ -410,6 +410,11 @@ def _stitch_tail_cuda(pan1, pan2, k1, b1, k2, b2, dx, dy, fold, block, halo,
                         k2, b2)
     if pan1.dtype != torch.uint16 or pan2.dtype != torch.uint16:
         raise ValueError("remap_const_stitch_chunked: PANs must be uint16")
+    if pan1.shape[1] % 8 or not abs(dx) < 120.0:
+        # the kernel moves 8 columns a thread and stages dx's column reach
+        raise ValueError(
+            "remap_const_stitch_chunked: kernel (d) takes widths that are "
+            f"multiples of 8 and |dx| < 120; got {pan1.shape[1]}, {dx}")
     if any(t.dtype != torch.float64 for t in (k1, b1, k2, b2)):
         raise ValueError("remap_const_stitch_chunked: k, b must be float64")
     pan1, pan2 = pan1.contiguous(), pan2.contiguous()

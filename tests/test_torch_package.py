@@ -3,6 +3,7 @@ the build's failure mode, and the launch counters."""
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,12 +15,20 @@ from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda, resample, rrc
 
 torch.set_num_threads(2)
 
+ROOT = Path(__file__).resolve().parents[1]
+
 PORT_MODULES = [
     "opticalimageprocessor_tpu_torch",
     "opticalimageprocessor_tpu_torch._build",
     "opticalimageprocessor_tpu_torch.cli",
+    "opticalimageprocessor_tpu_torch.constants",
+    "opticalimageprocessor_tpu_torch.formats",
+    "opticalimageprocessor_tpu_torch.formats.naming",
+    "opticalimageprocessor_tpu_torch.formats.rrc_csv",
     "opticalimageprocessor_tpu_torch.io",
+    "opticalimageprocessor_tpu_torch.io.raw",
     "opticalimageprocessor_tpu_torch.io.streaming",
+    "opticalimageprocessor_tpu_torch.io.tiff",
     "opticalimageprocessor_tpu_torch.models",
     "opticalimageprocessor_tpu_torch.models.device_pipeline",
     "opticalimageprocessor_tpu_torch.models.preprocessor",
@@ -31,6 +40,9 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.ops.polyfit",
     "opticalimageprocessor_tpu_torch.ops.resample",
     "opticalimageprocessor_tpu_torch.ops.rrc",
+    "opticalimageprocessor_tpu_torch.utils",
+    "opticalimageprocessor_tpu_torch.utils.logging",
+    "opticalimageprocessor_tpu_torch.utils.native",
 ]
 
 
@@ -47,6 +59,56 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _port_sys_modules(code: str) -> str:
+    """Run ``code`` in a fresh interpreter, then list every module of the
+    JAX package in its ``sys.modules``."""
+    code += (
+        "\nimport sys\n"
+        "print(sorted(m for m in sys.modules if m == "
+        "'opticalimageprocessor_tpu' or "
+        "m.startswith('opticalimageprocessor_tpu.')))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    return res.stdout.strip().splitlines()[-1]
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """Every module of the port, and chip_smoke.py, load no module of
+    ``opticalimageprocessor_tpu`` (not even its jax-free host modules)."""
+    mods = _port_sys_modules(
+        "import importlib\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+    )
+    assert mods == "[]", mods
+
+
+def test_port_cli_runs_without_the_jax_package(tmp_path):
+    """A CLI run (a ``stitch`` of two RAW files, and a usage error) through
+    the port's own logging, naming and RAW modules loads nothing of the
+    JAX package."""
+    a = (np.arange(4 * 12288) % 65536).astype(np.uint16).reshape(4, 12288)
+    a.tofile(tmp_path / "L.RAW")
+    a.tofile(tmp_path / "R.RAW")
+    mods = _port_sys_modules(
+        "import os\n"
+        f"os.environ['LOGFILE'] = {str(tmp_path / 'oip.log')!r}\n"
+        "from opticalimageprocessor_tpu_torch import cli\n"
+        f"assert cli.main(['stitch', '--image1', {str(tmp_path / 'L.RAW')!r},"
+        f" '--image2', {str(tmp_path / 'R.RAW')!r}, '-o', "
+        f"{str(tmp_path / 'O.RAW')!r}, '-c', '4']) == 0\n"
+        "assert cli.main(['stitch', '--image1', 'x', '--image2', 'y', "
+        "'-c', '1']) == 254\n"
+    )
+    assert mods == "[]", mods
+    out = np.fromfile(tmp_path / "O.RAW", dtype=np.uint16).reshape(4, -1)
+    np.testing.assert_array_equal(out[:, :12286], a[:, :12286])
+    np.testing.assert_array_equal(out[:, 12286:], a[:, 2:])
 
 
 def test_run_scene_cuda_without_cuda_raises(monkeypatch):
@@ -107,6 +169,7 @@ def test_kernel_wrappers_reject_mismatched_shapes(which):
                 _meta((2, 64, 9), c64), _meta((1, 4, 16, 4), c64),
                 _meta((64,), c64), _meta((9,), c64),
                 _meta((9, 9), torch.float32), _meta((9, 9), torch.float32),
+                _meta((1, 2, 4, 136, 8), torch.bfloat16),
             )
         elif which == "remap_band":
             resample._remap_band_cuda(
@@ -173,7 +236,7 @@ def test_library_path_keys_on_sources(monkeypatch, tmp_path):
 def test_stream_process_writes_the_strip_in_order(rng, tmp_path, halo):
     """stream_process on the CPU: sections with their clipped halo rows
     reach ``fn``, and ``write`` gets every payload in line order."""
-    from opticalimageprocessor_tpu.io.raw import RawStrip
+    from opticalimageprocessor_tpu_torch.io.raw import RawStrip
     from opticalimageprocessor_tpu_torch.io.streaming import stream_process
 
     img = rng.integers(0, 65536, (103, 16), dtype=np.uint16)

@@ -12,6 +12,7 @@ from opticalimageprocessor_tpu.ops.phasecorr_pallas import (
     windowed_crosspower_fused_tiles as jax_fused_tiles,
 )
 from opticalimageprocessor_tpu_torch.ops import phasecorr
+from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
 from opticalimageprocessor_tpu_torch.ops.phasecorr_cuda import (
     windowed_crosspower_fused_tiles,
 )
@@ -54,8 +55,12 @@ def _numpy_spectra(pans, bands):
 
 def test_crosspower_plain_matches_jax_fused_kernel(rng):
     """Same numpy spectra into both: the port's plain cross-power vs the
-    Pallas kernel in interpret mode (bf16 GEMM inputs there, float32
-    here: the envelope of tests/test_phasecorr.py:85-87)."""
+    Pallas kernel in interpret mode.  Both round Cn and the evaluation
+    matrices to bfloat16 and sum in float32, so they differ only where an
+    ulp of Cn flips a bf16 rounding and in the order of summation: over 5
+    seeds at most 2.7e-5 px in dx, 1.1e-5 px in dy and 6.7e-6 in response
+    (the float32 plain version read 6.7e-5 / 2.9e-5 / 2.7e-4).  Gate
+    1e-4."""
     pans, bands = _tiles(rng)
     fpan, fband = _numpy_spectra(pans, bands)
     want = jax_fused_tiles(
@@ -69,7 +74,7 @@ def test_crosspower_plain_matches_jax_fused_kernel(rng):
     )
     for g, w in zip(got, want):
         assert g.shape == (2, 4)
-        assert np.abs(g.numpy() - np.asarray(w)).max() <= 5e-3
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-4
 
 
 def test_crosspower_plain_matches_jax_unfused(rng):
@@ -98,6 +103,94 @@ def test_crosspower_plain_matches_jax_unfused(rng):
     for b in range(4):
         assert abs(float(got[0][0, b]) - (2 + 4 * (b - 1))) < 0.1
         assert abs(float(got[1][0, b]) - (-4 + 4 * (b % 2))) < 0.1
+
+
+def _unpack_rows(packed, keep, wx):
+    """The dense (2*Kp, N_PAD) B_re and B_im that the kernel's wgmma
+    descriptors read from ``packed``, in the kernel's K order (chunk by
+    chunk: KX_CHUNK Cr rows, then KX_CHUNK Ci rows)."""
+    chunks, parts, slabs, n_pad, eight = packed.shape
+    assert (parts, slabs, n_pad, eight) == (2, 2 * pcc.KX_CHUNK // 8,
+                                            pcc.N_PAD, 8)
+    # element (q = 8 j + e, n) of chunk c, part p sits at [c, p, j, n, e]
+    dense = packed.permute(1, 0, 2, 4, 3).reshape(2, chunks * 2 *
+                                                  pcc.KX_CHUNK, pcc.N_PAD)
+    return dense[0].to(torch.float32), dense[1].to(torch.float32)
+
+
+@pytest.mark.parametrize("keep,win", [(129, 16), (615, 64), (40, 3)])
+def test_packed_eval_operands_reproduce_the_plain_version(rng, keep, win):
+    """The host half of kernel (b)'s layout: the wrapper's packed B (its
+    padding, signs and K order), multiplied in float32 by A = [Cr | Ci]
+    built chunk by chunk in the kernel's order, gives _crosspower_plain's
+    output (same bf16 operands, another order of summation)."""
+    M, m, n = 64, 16, 7 if keep == 40 else keep // 2 + 1
+    n_pad = (keep - 1) * 2
+    fpan = torch.from_numpy((rng.standard_normal((1, M, keep))
+                             + 1j * rng.standard_normal((1, M, keep)))
+                            .astype(np.complex64))
+    fpan[0, 3, 5] = 0          # |C| == 0 divides by 1
+    fband = torch.from_numpy((rng.standard_normal((1, 2, m, n))
+                              + 1j * rng.standard_normal((1, 2, m, n)))
+                             .astype(np.complex64))
+    hr = phasecorr.filter_response(m, M // m, torch.device("cpu"))
+    hc = phasecorr.filter_response(n, 4, torch.device("cpu"))[:keep]
+    if hc.shape[0] < keep:
+        hc = torch.cat([hc] * (-(-keep // hc.shape[0])))[:keep]
+    ex_c, ex_s = phasecorr.eval_consts(n_pad, keep, win, False,
+                                       torch.device("cpu"))
+    wx = 2 * win + 1
+    want_re, want_im = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
+
+    packed = pcc.pack_eval_operands(ex_c, ex_s)
+    chunks = -(-keep // pcc.KX_CHUNK)
+    assert packed.shape == (chunks, 2, 2 * pcc.KX_CHUNK // 8, pcc.N_PAD, 8)
+    assert packed.dtype == torch.bfloat16
+    b_re, b_im = _unpack_rows(packed, keep, wx)
+    kp = chunks * pcc.KX_CHUNK
+    for b in range(2):
+        cr = torch.zeros((M, kp))
+        ci = torch.zeros((M, kp))
+        cr[:, :keep], ci[:, :keep] = pcc.whitened_bf16(fpan[0], fband[0, b],
+                                                       hr, hc)
+        a = torch.cat([cr.reshape(M, chunks, pcc.KX_CHUNK),
+                       ci.reshape(M, chunks, pcc.KX_CHUNK)], dim=2)
+        a = a.reshape(M, 2 * kp)
+        got_re = torch.matmul(a, b_re)
+        got_im = torch.matmul(a, b_im)
+        scale = float(want_re[0, b].abs().max())
+        assert float((got_re[:, :wx] - want_re[0, b]).abs().max()) <= 1e-5 * scale
+        assert float((got_im[:, :wx] - want_im[0, b]).abs().max()) <= 1e-5 * scale
+        # the padded window columns stay 0
+        assert float(got_re[:, wx:].abs().max()) == 0.0
+        assert float(got_im[:, wx:].abs().max()) == 0.0
+
+
+def test_crosspower_plain_rounds_like_the_tpu_kernel(rng):
+    """The plain version's GEMM operands are bfloat16 values: replacing
+    Ec by its bf16 rounding changes nothing, while the float32 product
+    differs (the rounding is really applied)."""
+    M, m, n, keep, win = 32, 8, 9, 17, 4
+    fpan = torch.from_numpy((rng.standard_normal((1, M, keep))
+                             + 1j * rng.standard_normal((1, M, keep)))
+                            .astype(np.complex64))
+    fband = torch.from_numpy((rng.standard_normal((1, 1, m, n))
+                              + 1j * rng.standard_normal((1, 1, m, n)))
+                             .astype(np.complex64))
+    hr = torch.ones(M, dtype=torch.complex64)
+    hc = torch.ones(keep, dtype=torch.complex64)
+    ex_c, ex_s = phasecorr.eval_consts(32, keep, win, False,
+                                       torch.device("cpu"))
+    a = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
+    b = pcc._crosspower_plain(fpan, fband, hr, hc, pcc._bf16(ex_c),
+                              pcc._bf16(ex_s))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    ky = torch.arange(M) % m
+    kx = torch.arange(keep) % n
+    c = phasecorr.whitened_crosspower(fpan[0], fband[0, 0][ky][:, kx])
+    f32 = torch.matmul(c.real, ex_c) - torch.matmul(c.imag, ex_s)
+    assert float((f32 - a[0][0, 0]).abs().max()) > 1e-4
 
 
 def test_upsampled_band_spectrum_matches_jax(rng):

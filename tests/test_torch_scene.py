@@ -1,6 +1,7 @@
 """Port scene (models/scene.run_scene, cli scene) end to end against the
 JAX package's run_scene on the same RAW files and RRC CSVs."""
 
+import functools
 import os
 
 import numpy as np
@@ -9,7 +10,9 @@ import torch
 
 from opticalimageprocessor_tpu.formats.rrc_csv import save_rrc_params
 from opticalimageprocessor_tpu.io import tiff as tiff_io
+from opticalimageprocessor_tpu.models import device_pipeline as jdp
 from opticalimageprocessor_tpu.models import scene as jscene
+from opticalimageprocessor_tpu.ops import phasecorr_pallas as jpallas
 from opticalimageprocessor_tpu.ops import resample as jres
 from opticalimageprocessor_tpu_torch import cli
 from opticalimageprocessor_tpu_torch.models import scene
@@ -75,7 +78,19 @@ def runs(tmp_path_factory):
         od = os.path.join(d, name)
         os.mkdir(od)
         cap = {}
-        paths = _run(module, files, od, cap)
+        with pytest.MonkeyPatch.context() as mp:
+            # JAX's registration as it runs on the TPU: the fused Pallas
+            # cross-power (bf16 GEMM operands, float32 sums), in interpret
+            # mode -- the contract of the port's kernel (b) and of its
+            # plain version; on the CPU JAX would take its float32 path
+            mp.setattr(jdp, "register_fast", functools.partial(
+                jdp.register_fast, use_fused=True, interpret=True))
+            fused = []
+            real = jpallas.windowed_crosspower_fused_bands
+            mp.setattr(jpallas, "windowed_crosspower_fused_bands",
+                       lambda *a: fused.append(1) or real(*a))
+            paths = _run(module, files, od, cap)
+        assert bool(fused) == (name == "jax")
         cap["aligned"] = tiff_io.read_tiff(paths["aligned"])[..., [2, 1, 0, 3]]
         cap["stitched"] = np.fromfile(paths["stitched"], "<u2").reshape(
             LINES, -1)
