@@ -19,10 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
    shapes the main paths give it, with its stated tolerance, both timed
    with CUDA events, beside the kernel's bound (the bytes it must move at
    3.35 TB/s against its operations at the card's peak for their type);
-   kernels (b) and (d) also at the 32768-line scene's shapes (20 tiles;
-   a 32768-row pair), and (b) beside cuBLAS's bare bf16 GEMM of the same
-   real-ified product ("GEMM only, no whitening"), which the port never
-   calls;
+   kernel (c) at the scene's 4 interleaved bands, the prestitch of PAN2
+   and a file-align band, kernels (b) and (d) also at the 32768-line
+   scene's shapes (20 tiles; a 32768-row pair), and (b) beside cuBLAS's
+   bare bf16 GEMM of the same real-ified product ("GEMM only, no
+   whitening"), which the port never calls;
 3. the CLI entry (``cli.main(["scene", ...])``) on a 16384-line scene of
    RAW files built like bench.py's synthesis, checking the outputs, the
    recovered band shifts and stt translation, and that the stitched left
@@ -41,7 +42,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 The last two lines of standard output are the kernels' JSON record
 (launches over phases 3 and 5, error, kernel, plain and bound ms at phase
-2's shapes, plus the scene shapes' ms and bound for (b) and (d)) and
+2's shapes, plus the scene shapes' ms and bound for (b) and (d) and the
+file commands' shapes' ms and bound for (c)) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -324,29 +326,8 @@ def phase_kernels(dev, records):
     records["crosspower"].update(gemm_only_ms=gemm[2],
                                  scene_gemm_only_ms=gemm[tiles])
 
-    # (c) band remap: one 8192 x 3072 band, pinned coefficients
-    band = torch.from_numpy(
-        rng.integers(0, 65536, (8192, BW), dtype=np.uint16)).to(dev)
-    cx = torch.tensor([3.7, -2.1e-4], dtype=torch.float32, device=dev)
-    cy = torch.tensor([-1.9, 6.5e-4, -3.0e-7], dtype=torch.float32,
-                      device=dev)
-    kw = dict(row_bound=3, block=128, halo=16)
-    got = resample._remap_band_cuda(band, cx, cy, **kw)
-    plain = resample._remap_band_plain(band, cx, cy, **kw)
-    torch.cuda.synchronize()
-    dmax, share = dn_diff(got, plain)
-    say(f"[c] remap_band: max {dmax} DN, {share:.4%} of pixels differ")
-    check(dmax == 0, "remap_band vs plain")
-    records["remap_band"] = dict(
-        max_abs_err=float(dmax),
-        ms=time_ms(lambda: resample._remap_band_cuda(band, cx, cy, **kw), 20),
-        plain_ms=time_ms(
-            lambda: resample._remap_band_plain(band, cx, cy, **kw), 5),
-        library_ms=None,
-        shape="(8192, 3072) u16, row_bound 3, block 128, halo 16",
-        **bound(4 * band.numel()),
-    )
-    del band
+    phase_remap(dev, rng, records)
+    torch.cuda.empty_cache()
     say(f"[c] {records['remap_band']}")
 
     # (d) stitch tail: 4096 x 12288, pinned and clamp-edge translations
@@ -445,6 +426,104 @@ def phase_kernels(dev, records):
     say(f"[e] {records['row_pass']}")
 
 
+def f32(dev, *rows):
+    import torch
+
+    return torch.tensor(rows, dtype=torch.float32, device=dev)
+
+
+# the dropped-tap cases of tests/test_torch_resample.py: a horizontal shift
+# crossing col_halo mid-strip, and G beyond the row bound
+PAST_COL_HALO = ([40.0, 5.0e-3], [1.2, 0.0, 0.0])
+PAST_ROW_BOUND = ([-2.5, 0.0], [22.0, 0.0, 0.0])
+
+
+def phase_remap(dev, rng, records):
+    """Kernel (c) at 0 DN against its plain version at the three shapes the
+    main paths give it, each timed beside its bound (uint16 in and out: 4
+    bytes a pixel and band): the scene's 4 bands into the interleaved
+    raster (rb 3, block 128 / halo 16), the prestitch of PAN2 (rb 4, 512 /
+    32) and a band of the file align (rb 6, 512 / 32); also the dropped-tap
+    coefficients and a row count that is no multiple of a row tile."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    def held(tag, src, cx, cy, row_bound, block, halo):
+        rb = row_bound
+        if src.dim() == 3:
+            got = resample._remap_bands_cuda(src, cx, cy, rb, block, halo)
+            plain = resample._remap_bands_plain(src, cx, cy, rb, block, halo)
+        else:
+            got = resample._remap_band_cuda(src, cx, cy, rb, block, halo)
+            plain = resample._remap_band_plain(src, cx, cy, rb, block, halo)
+        torch.cuda.synchronize()
+        dmax, share = dn_diff(got, plain)
+        say(f"[c] {tag}: max {dmax} DN, {share:.4%} of pixels differ")
+        check(dmax == 0, f"remap_band {tag} vs plain")
+        return dmax
+
+    # the scene: the 4 MSS bands of a 32768-line scene, the fitted shifts
+    # of bench.py's synthesis (band b rolled by (b mod 2, b - 1) px)
+    bands = torch.from_numpy(
+        rng.integers(0, 65536, (4, 8192, BW), dtype=np.uint16)).to(dev)
+    cx = f32(dev, *([4.0 * (b - 1) + 0.3, -2.1e-4] for b in range(4)))
+    cy = f32(dev, *([4.0 * (b % 2) - 0.4, 6.5e-4, -3.0e-7]
+                    for b in range(4)))
+    kw = dict(row_bound=3, block=128, halo=16)
+    worst = held("scene 4 x (8192, 3072) rb 3", bands, cx, cy, **kw)
+    # the dropped-tap cases side by side, and 8115 rows (no tile multiple)
+    cx_d = f32(dev, [3.7, -2.1e-4], PAST_COL_HALO[0], PAST_ROW_BOUND[0],
+               [-60.0, -4.0e-3])
+    cy_d = f32(dev, [-1.9, 6.5e-4, -3.0e-7], PAST_COL_HALO[1],
+               PAST_ROW_BOUND[1], [-30.0, 1.0e-3, 0.0])
+    worst = max(worst, held("dropped taps, scene shape", bands, cx_d, cy_d,
+                            **kw))
+    worst = max(worst, held("dropped taps, 8115 rows",
+                            bands[:, :8115].contiguous(), cx_d, cy_d, **kw))
+    rec = dict(
+        ms=time_ms(lambda: resample._remap_bands_cuda(bands, cx, cy, **kw),
+                   20),
+        plain_ms=time_ms(
+            lambda: resample._remap_bands_plain(bands, cx, cy, **kw), 5),
+        library_ms=None,
+        shape="4 x (8192, 3072) u16 -> (8192, 3072, 4), row_bound 3, "
+              "block 128, halo 16",
+        **bound(4 * bands.numel()),
+    )
+    del bands
+    # the prestitch of PAN2: a constant (dx, dy) = (-3, 2.6) shift
+    pan = torch.from_numpy(
+        rng.integers(0, 65536, (16384, W), dtype=np.uint16)).to(dev)
+    cx, cy = f32(dev, -12.0, 0.0), f32(dev, 10.4, 0.0, 0.0)
+    kw = dict(row_bound=4, block=512, halo=32)
+    worst = max(worst, held("prestitch (16384, 12288) rb 4", pan, cx, cy,
+                            **kw))
+    rec.update(
+        prestitch_ms=time_ms(
+            lambda: resample._remap_band_cuda(pan, cx, cy, **kw), 10),
+        **{f"prestitch_{k}": v for k, v in bound(4 * pan.numel()).items()})
+    del pan
+    # a band of the file align, with the dropped-tap cases too
+    band = torch.from_numpy(
+        rng.integers(0, 65536, (4096, BW), dtype=np.uint16)).to(dev)
+    kw = dict(row_bound=6, block=512, halo=32)
+    cx, cy = f32(dev, 4.3, -2.1e-4), f32(dev, 3.6, 6.5e-4, -3.0e-7)
+    worst = max(worst, held("align (4096, 3072) rb 6", band, cx, cy, **kw))
+    # (the cases scaled to halo 32 and rb 6: the shift crosses 32 px near
+    # x = 1100, G = 8.5)
+    for tag, (cxd, cyd) in (("past_col_halo", ([40.0, 2.0e-2], [1.2, 0, 0])),
+                            ("past_row_bound", ([-2.5, 0.0], [34.0, 0, 0]))):
+        worst = max(worst, held(f"align {tag}", band[:4001].contiguous(),
+                                f32(dev, *cxd), f32(dev, *cyd), **kw))
+    rec.update(
+        align_ms=time_ms(
+            lambda: resample._remap_band_cuda(band, cx, cy, **kw), 20),
+        **{f"align_{k}": v for k, v in bound(4 * band.numel()).items()})
+    del band
+    records["remap_band"] = dict(max_abs_err=float(worst), **rec)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the CLI on RAW files
 # ---------------------------------------------------------------------------
@@ -501,6 +580,9 @@ def phase_cli(dev, tmp: Path, lines: int = 16384):
               ("rrc", "crosspower", "remap_band", "stitch_tail"))
           and launches["row_pass"] == 0,
           f"the scene path's kernels (a)-(d) did not all launch: {launches}")
+    check(launches["remap_band"] == 1,
+          f"the scene's 4 band remaps took {launches['remap_band']} kernel-(c) "
+          "launches, not 1")
 
     aligned = list(tmp.glob("*.ALIGNED.TIFF"))
     check(len(aligned) == 1, f"ALIGNED.TIFF missing: {aligned}")
@@ -836,7 +918,7 @@ _KERNEL_CLASSES = (
     ("row_pass_kernel", "kernel (e) row_pass"),
     ("crosspower_kernel", "kernel (b) crosspower"),
     ("stitch_tail_kernel", "kernel (d) stitch_tail"),
-    ("remap_band_kernel", "kernel (c) remap_band"),
+    ("remap_bands_kernel", "kernel (c) remap_band"),
     ("rrc_kernel", "kernel (a) rrc"),
 )
 
@@ -1017,7 +1099,9 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
             **{k: r[k] for k in ("scene_ms", "scene_bound_ms", "gemm_only_ms",
-                                 "scene_gemm_only_ms") if k in r},
+                                 "scene_gemm_only_ms", "prestitch_ms",
+                                 "prestitch_bound_ms", "align_ms",
+                                 "align_bound_ms") if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

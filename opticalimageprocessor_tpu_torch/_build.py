@@ -52,7 +52,7 @@ _SIGNATURES = {
     "oip_crosspower": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    "oip_remap_band": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "oip_remap_bands": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     "oip_stitch_tail": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
     ],

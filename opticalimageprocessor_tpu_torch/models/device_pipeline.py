@@ -10,9 +10,10 @@ Per scene:
              5x5 centroid, the 0.4 response filter and a float64 weighted
              polynomial fit; then the stt estimate on the uncorrected CMOS
              overlap strips
-  transform: RRC of the 4 bands (kernel (a)), 4 alignment resamples
-             (kernel (c)), and the stitch tail: RRC of both PANs, the
-             prestitch translation of PAN2 and the seam concat (kernel (d))
+  transform: RRC of the 4 bands (kernel (a)), the 4 alignment resamples
+             into the interleaved raster (one kernel-(c) launch), and the
+             stitch tail: RRC of both PANs, the prestitch translation of
+             PAN2 and the seam concat (kernel (d))
 
 The JAX package's TPU workarounds are not ported: cuFFT replaces the DFT
 done as matrix multiplies (``ops/fft_mxu``) and float64 the double-word
@@ -33,7 +34,7 @@ from ..constants import (
 
 from ..ops import phasecorr
 from ..ops.phasecorr_cuda import windowed_crosspower_fused_tiles
-from ..ops.resample import remap_band_fast_chunked, remap_const_stitch_chunked
+from ..ops.resample import remap_bands_interleaved, remap_const_stitch_chunked
 from ..ops.rrc import rrc_apply
 
 RRCParams = tuple[torch.Tensor, torch.Tensor]
@@ -338,16 +339,10 @@ class ScenePipeline(nn.Module):
         """-> (aligned (L/4, W/4, 4), stitched (L, 2*(W - fold))[, prestt
         (L, W)]) uint16."""
         mss_c = rrc_apply(mss, self.mss_k, self.mss_b)
-        bands, rows, bw = mss_c.shape
-        aligned = torch.empty((rows, bw, bands), dtype=torch.uint16,
-                              device=mss.device)
-        for i in range(bands):
-            aligned[:, :, i].copy_(
-                remap_band_fast_chunked(
-                    mss_c[i], cx[i], cy[i], row_bound=self.row_bound,
-                    col_block=self.col_block, col_halo=self.col_halo,
-                )
-            )
+        aligned = remap_bands_interleaved(
+            mss_c, cx, cy, row_bound=self.row_bound,
+            col_block=self.col_block, col_halo=self.col_halo,
+        )
         del mss_c
         dxs, dys = self.clamp_stt(raw_dx, raw_dy)
         out = remap_const_stitch_chunked(

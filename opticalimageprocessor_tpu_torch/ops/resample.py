@@ -10,6 +10,8 @@ Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``'s fast path:
   ``G = (cy2*xx^2 + cy1*xx + cy0)/4``, xx = 4x: kernel (c) on CUDA for
   ``row_bound <= 6``, else the staged :func:`remap_band_fast` (column
   cubic in PyTorch, then the vertical pass, kernel (e) on CUDA);
+  :func:`remap_bands_interleaved` remaps a stack of bands into the
+  pixel-interleaved raster, one kernel-(c) launch for all of them;
 * :func:`remap_const_stitch_chunked` -- RRC of both PANs, the prestitch
   translation of PAN2 and the seam concat: kernel (d) on CUDA.
 
@@ -20,6 +22,8 @@ coordinate arithmetic is float32 in the reference's expression order.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -212,36 +216,102 @@ def _remap_band_plain(src, coeff_x, coeff_y, row_bound, block, halo):
     return _round_u16(_fast_row_pass_plain(padded, cu, rows))
 
 
-def _remap_band_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
+def _remap_bands_plain(src, coeff_x, coeff_y, row_bound, block, halo):
+    """Plain PyTorch remap of a (bands, rows, W) stack into the interleaved
+    (rows, W, bands) raster: :func:`_remap_band_plain` per band, stacked on
+    the last axis."""
+    return torch.stack(
+        [_remap_band_plain(src[i], coeff_x[i], coeff_y[i], row_bound, block,
+                           halo) for i in range(src.shape[0])], dim=-1)
+
+
+REMAP_BANDS = (1, 4)       # band counts kernel (c) interleaves
+_REMAP_PAIRS = 4           # (column, band) outputs a kernel-(c) thread owns
+_REMAP_THREADS = 128       # target threads a block
+_REMAP_MAX_THREADS = 512
+_REMAP_TILE_ROWS = (256, 64)   # rows a block: preferred, least
+
+
+def remap_geometry(bands: int, rows: int, width: int, block: int, halo: int,
+                   n_sm: int) -> tuple[int, int]:
+    """Kernel (c)'s launch geometry: ``(seg, tile)``, the output columns
+    and rows a block owns.  ``seg`` is a whole number of column blocks (so
+    every tap that is not dropped lies within ``col_halo`` of the segment)
+    and of a thread's 4 / ``bands`` columns, near 128 threads a block, and
+    wide enough that each thread stages at most one 16-byte chunk of a
+    source row's ``seg + 2 * halo`` columns (rounded out to whole chunks);
+    ``tile`` is 256 rows, halved down to 64 while the grid has fewer than 2
+    blocks an SM."""
+    cols = _REMAP_PAIRS // bands
+    unit = math.lcm(block, cols)
+    seg = unit * max(1, _REMAP_THREADS * cols // unit)
+    while bands * 8 * ((seg + 2 * halo + 14) // 8) > 8 * (seg // cols):
+        seg += unit
+    if seg // cols > _REMAP_MAX_THREADS:
+        raise ValueError(
+            f"kernel (c): col_block {block} / col_halo {halo} need "
+            f"{seg // cols} threads a block for {bands} band(s), more than "
+            f"{_REMAP_MAX_THREADS}")
+    n_seg = -(-width // seg)
+    tile, least = _REMAP_TILE_ROWS
+    while tile > least and n_seg * -(-rows // tile) < 2 * n_sm:
+        tile //= 2
+    return seg, tile
+
+
+def _remap_bands_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
+    """Kernel (c) on a (bands, rows, W) uint16 stack with (bands, 2) /
+    (bands, 3) float32 coefficients: one launch writes the (rows, W, bands)
+    raster."""
+    name = "remap_band_fast_chunked"
     if row_bound > ROW_OFF_BOUND_FAST:
         # the gate of the TPU kernel (c): its window covers 2*rb + 4 <= 16
-        # tap rows; here shared memory would outgrow a block near rb = 19
+        # tap rows
         raise ValueError(
-            f"remap_band_fast_chunked: kernel (c) takes row_bound <= "
-            f"{ROW_OFF_BOUND_FAST}, got {row_bound} (the staged "
-            "remap_band_fast takes larger bounds)"
+            f"{name}: kernel (c) takes row_bound <= {ROW_OFF_BOUND_FAST}, "
+            f"got {row_bound} (the staged remap_band_fast takes larger "
+            "bounds)"
         )
+    if src.dim() != 3 or src.shape[0] not in REMAP_BANDS or \
+            src.shape[2] % 8 or coeff_x.shape != (src.shape[0], 2) or \
+            coeff_y.shape != (src.shape[0], 3):
+        # the kernel stages 8 columns (16 bytes) a copy
+        raise ValueError(
+            f"{name}: src must be (bands, rows, W) with bands in "
+            f"{REMAP_BANDS} and W % 8 == 0, coeff_x (bands, 2) and coeff_y "
+            f"(bands, 3); got {tuple(src.shape)}, {tuple(coeff_x.shape)}, "
+            f"{tuple(coeff_y.shape)}"
+        )
+    _build.require_cuda(name, src, coeff_x, coeff_y)
+    if src.dtype != torch.uint16:
+        raise ValueError(f"{name}: src must be uint16")
+    if coeff_x.dtype != torch.float32 or coeff_y.dtype != torch.float32:
+        raise ValueError(f"{name}: coefficients must be float32")
+    src = src.contiguous()
+    bands, rows, width = src.shape
+    out = torch.empty((rows, width, bands), dtype=torch.uint16,
+                      device=src.device)
+    n_sm = torch.cuda.get_device_properties(src.device).multi_processor_count
+    seg, tile = remap_geometry(bands, rows, width, block, halo, n_sm)
+    _build.launch(
+        "remap_band", "oip_remap_bands", src.data_ptr(), out.data_ptr(),
+        bands, rows, width, block, halo, row_bound,
+        coeff_x.contiguous().data_ptr(), coeff_y.contiguous().data_ptr(),
+        seg, tile, _build.stream_of(src),
+    )
+    return out
+
+
+def _remap_band_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
+    """Kernel (c) on one (rows, W) band: the band count 1."""
     if src.dim() != 2 or coeff_x.shape != (2,) or coeff_y.shape != (3,):
         raise ValueError(
             "remap_band_fast_chunked: src must be 2-D, coeff_x (2,) and "
             f"coeff_y (3,); got {tuple(src.shape)}, "
             f"{tuple(coeff_x.shape)}, {tuple(coeff_y.shape)}"
         )
-    _build.require_cuda("remap_band_fast_chunked", src, coeff_x, coeff_y)
-    if src.dtype != torch.uint16:
-        raise ValueError("remap_band_fast_chunked: src must be uint16")
-    if coeff_x.dtype != torch.float32 or coeff_y.dtype != torch.float32:
-        raise ValueError("remap_band_fast_chunked: coefficients must be "
-                         "float32")
-    src = src.contiguous()
-    rows, width = src.shape
-    out = torch.empty_like(src)
-    _build.launch(
-        "remap_band", "oip_remap_band", src.data_ptr(), out.data_ptr(), rows,
-        width, block, halo, row_bound, coeff_x.data_ptr(),
-        coeff_y.data_ptr(), _build.stream_of(src),
-    )
-    return out
+    return _remap_bands_cuda(src[None], coeff_x[None], coeff_y[None],
+                             row_bound, block, halo)[..., 0]
 
 
 def _fast_row_pass_plain(padded: torch.Tensor, cu: torch.Tensor,
@@ -363,6 +433,35 @@ def remap_band_fast_chunked(
     if src.device.type == "cpu":
         return _remap_band_plain(src, cx, cy, row_bound, block, halo)
     return _remap_band_cuda(src, cx, cy, row_bound, block, halo)
+
+
+def remap_bands_interleaved(
+    src: torch.Tensor,
+    coeff_x,
+    coeff_y,
+    row_bound: int = ROW_OFF_BOUND_FAST,
+    col_block: int | None = None,
+    col_halo: int | None = None,
+) -> torch.Tensor:
+    """Alignment remap of a (bands, rows, W) uint16 stack by per-band
+    polynomials ``coeff_x`` (bands, 2) and ``coeff_y`` (bands, 3) into the
+    pixel-interleaved (rows, W, bands) raster: band i of the result is
+    :func:`remap_band_fast_chunked` of ``src[i]``.  For ``row_bound <= 6``
+    one kernel-(c) launch covers every band (1 or 4 of them) on CUDA;
+    larger bounds take the staged route band by band."""
+    if row_bound > ROW_OFF_BOUND_FAST:
+        return torch.stack(
+            [remap_band_fast_chunked(src[i], coeff_x[i], coeff_y[i],
+                                     row_bound, col_block, col_halo)
+             for i in range(src.shape[0])], dim=-1)
+    width = src.shape[-1]
+    block = col_block_size(width, col_block)
+    halo = COL_HALO if col_halo is None else col_halo
+    cx = torch.as_tensor(coeff_x, dtype=torch.float32, device=src.device)
+    cy = torch.as_tensor(coeff_y, dtype=torch.float32, device=src.device)
+    if src.device.type == "cpu":
+        return _remap_bands_plain(src, cx, cy, row_bound, block, halo)
+    return _remap_bands_cuda(src, cx, cy, row_bound, block, halo)
 
 
 def _stitch_tail_plain(pan1, pan2, k1, b1, k2, b2, dx, dy, fold, block, halo,

@@ -1,6 +1,7 @@
 """Port resampling (ops/resample) against the JAX package: the x4
-upsample, the band alignment remap (kernel (c)'s plain version) and the
-stitch tail (kernel (d)'s plain version), with pinned coefficients."""
+upsample, the band alignment remap (kernel (c)'s plain version, one band
+and the 4-band interleaved entry) and the stitch tail (kernel (d)'s plain
+version), with pinned coefficients."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,9 @@ import torch
 from opticalimageprocessor_tpu.ops import cv_exact
 from opticalimageprocessor_tpu.ops import resample as jres
 from opticalimageprocessor_tpu.ops import rrc as jrrc
-from opticalimageprocessor_tpu_torch.ops import resample
+from opticalimageprocessor_tpu_torch import _build
+from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
+from opticalimageprocessor_tpu_torch.ops import resample, rrc
 
 torch.set_num_threads(2)
 
@@ -77,6 +80,149 @@ def test_remap_band_matches_jax(rng, case, pallas):
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert d.max() <= 1, (case, d.max())
     assert (d > 0).mean() <= 0.01, (case, (d > 0).mean())
+
+
+# kernel (c)'s interleaved entry: 4 bands, each its own variant of a case
+# (band b shifted by 1.3 b px / 4 in x and b px in G, so the bands' dropped
+# taps differ); 300 rows is no multiple of any row tile or JAX chunk
+_BLOCKS = {"128_16": (128, 16), "512_32": (512, 32)}
+
+
+def _band_coeffs(case):
+    cx0, cy0 = _COEFFS[case]
+    cx = np.array([[cx0[0] + 1.3 * b, cx0[1]] for b in range(4)], np.float32)
+    cy = np.array([[cy0[0] + 4.0 * b, cy0[1], cy0[2]] for b in range(4)],
+                  np.float32)
+    return cx, cy
+
+
+def _remap_bands_inputs(rng, case):
+    src = rng.integers(0, 65536, (4, 300, 1024), dtype=np.uint16)
+    return (src, *_band_coeffs(case))
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("blk", sorted(_BLOCKS))
+@pytest.mark.parametrize("row_bound", [3, 4, 6])
+@pytest.mark.parametrize("case", sorted(_COEFFS))
+def test_remap_bands_interleaved_matches_jax(rng, case, row_bound, blk,
+                                             pallas):
+    """The 4-band interleaved remap's plain version against JAX's
+    remap_band_fast_chunked per band, stacked on the last axis (its XLA
+    route and its Pallas kernel in interpret mode): within 1 DN on <= 1% of
+    pixels, the envelope of test_remap_band_matches_jax."""
+    src, cx, cy = _remap_bands_inputs(rng, case)
+    block, halo = _BLOCKS[blk]
+    kw = dict(chunk_rows=128, row_bound=row_bound, col_block=block,
+              col_halo=halo)
+    try:
+        jres.set_fused_remap_pallas(pallas, interpret=True)
+        want = np.stack([np.asarray(jres.remap_band_fast_chunked(
+            jnp.asarray(src[b]), cx[b], cy[b], **kw)) for b in range(4)],
+            axis=-1)
+    finally:
+        jres.set_fused_remap_pallas(False)
+    got = resample.remap_bands_interleaved(
+        torch.from_numpy(src), cx, cy, row_bound=row_bound, col_block=block,
+        col_halo=halo).numpy()
+    assert got.shape == (300, 1024, 4) and got.dtype == np.uint16
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1, (case, d.max())
+    assert (d > 0).mean() <= 0.01, (case, (d > 0).mean())
+
+
+@pytest.mark.parametrize("blk", sorted(_BLOCKS))
+@pytest.mark.parametrize("row_bound", [3, 4, 6, 10])
+@pytest.mark.parametrize("case", sorted(_COEFFS))
+def test_remap_bands_interleaved_equals_per_band_route(rng, case, row_bound,
+                                                       blk):
+    """Band i of the interleaved raster is remap_band_fast_chunked of band i
+    at 0 DN (row_bound 10: the staged route band by band)."""
+    src, cx, cy = _remap_bands_inputs(rng, case)
+    block, halo = _BLOCKS[blk]
+    kw = dict(row_bound=row_bound, col_block=block, col_halo=halo)
+    got = resample.remap_bands_interleaved(torch.from_numpy(src), cx, cy,
+                                           **kw).numpy()
+    for b in range(4):
+        want = resample.remap_band_fast_chunked(
+            torch.from_numpy(src[b]), cx[b], cy[b], **kw).numpy()
+        np.testing.assert_array_equal(got[..., b], want)
+
+
+@pytest.mark.parametrize(
+    "bands,rows,width,block,halo,n_sm,want",
+    [
+        (4, 8192, 3072, 128, 16, 132, (128, 256)),     # the scene's bands
+        (1, 16384, 12288, 512, 32, 132, (512, 256)),   # prestitch PAN2
+        (1, 4096, 3072, 512, 32, 132, (512, 64)),      # file align band
+        (1, 300, 1024, 128, 16, 132, (512, 64)),
+        (1, 300, 1000, 100, 5, 4, (500, 64)),
+        (4, 300, 768, 384, 32, 132, (384, 64)),
+    ],
+)
+def test_remap_geometry(bands, rows, width, block, halo, n_sm, want):
+    """Kernel (c)'s blocks own whole column blocks and whole threads (4 /
+    bands columns each), near 128 threads; row tiles shrink from 256 to 64
+    rows while the grid has fewer than 2 blocks an SM; a thread stages at
+    most one chunk of 8 source columns a row."""
+    seg, tile = resample.remap_geometry(bands, rows, width, block, halo,
+                                        n_sm)
+    assert (seg, tile) == want
+    assert seg % block == 0 and seg % (4 // bands) == 0
+    threads = seg // (4 // bands)
+    assert threads <= 512
+    assert bands * ((seg + 2 * halo + 14) // 8) <= threads
+
+
+@pytest.mark.parametrize("block,halo", [(1024, 16), (128, 300)])
+def test_remap_geometry_refuses_too_many_threads_or_chunks(block, halo):
+    with pytest.raises(ValueError, match="threads"):
+        resample.remap_geometry(4, 300, 1024, block, halo, 132)
+
+
+@pytest.mark.parametrize("bad", ["bands2", "bands3", "coeff_shape",
+                                 "width", "row_bound7"])
+def test_kernel_c_bands_refuses_bad_arguments(bad):
+    """The interleaved entry refuses, before it looks at the device, what
+    the kernel does not take: 2 or 3 bands, coefficients of another band
+    count, a width that is no multiple of 8, row_bound above 6."""
+    before = dict(_build.LAUNCHES)
+    nb = {"bands2": 2, "bands3": 3}.get(bad, 4)
+    src = torch.zeros((nb, 32, 100 if bad == "width" else 128),
+                      dtype=torch.uint16)
+    cx = torch.zeros((nb, 2) if bad != "coeff_shape" else (nb, 3))
+    cy = torch.zeros((nb, 3))
+    rb = 7 if bad == "row_bound7" else 3
+    with pytest.raises(ValueError, match="got"):
+        resample._remap_bands_cuda(src, cx, cy, rb, 128, 16)
+    assert _build.LAUNCHES == before
+
+
+def test_scene_transform_aligned_equals_band_by_band(rng):
+    """ScenePipeline.transform on the CPU gives the aligned raster it gave
+    before the interleaved entry: the RRC'd bands remapped one by one with
+    remap_band_fast_chunked and stacked on the last axis."""
+    lines, width = 512, 1024
+    pan1 = rng.integers(0, 65536, (lines, width), dtype=np.uint16)
+    pan2 = rng.integers(0, 65536, (lines, width), dtype=np.uint16)
+    mss = rng.integers(0, 65536, (4, lines // 4, width // 4), dtype=np.uint16)
+    params = [(0.98 + 0.04 * rng.random(width), rng.normal(0, 20, width))
+              for _ in range(2)]
+    mk = 0.98 + 0.04 * rng.random((4, width // 4))
+    mb = rng.normal(0, 20, (4, width // 4))
+    pipe = dp.ScenePipeline(*params, (mk, mb), fold=100, col_block=128,
+                            col_halo=16, row_bound=3)
+    cx, cy = (torch.from_numpy(x) for x in _band_coeffs("interior"))
+    aligned, _ = pipe.transform(
+        *(torch.from_numpy(x) for x in (pan1, pan2, mss)), cx, cy,
+        torch.tensor(-1.5), torch.tensor(0.7))
+    mss_c = rrc._rrc_plain(torch.from_numpy(mss), torch.from_numpy(mk),
+                           torch.from_numpy(mb))
+    want = torch.stack([resample.remap_band_fast_chunked(
+        mss_c[b], cx[b], cy[b], row_bound=3, col_block=128, col_halo=16)
+        for b in range(4)], dim=-1)
+    assert aligned.shape == (lines // 4, width // 4, 4)
+    np.testing.assert_array_equal(aligned.numpy(), want.numpy())
 
 
 def test_col_block_size_matches_jax_matrix():
