@@ -23,7 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
    and a file-align band, kernels (b) and (d) also at the 32768-line
    scene's shapes (20 tiles; a 32768-row pair), and (b) beside cuBLAS's
    bare bf16 GEMM of the same real-ified product ("GEMM only, no
-   whitening"), which the port never calls;
+   whitening"), which the port never calls; kernel (e) at 9 shapes (U 18
+   to 100, 8189 rows, widths 1000 / 1001 / 3072), at 0 ulp, beside cuDNN's
+   depthwise conv1d of the same sum (also never called by the port);
 3. the CLI entry (``cli.main(["scene", ...])``) on a 16384-line scene of
    RAW files built like bench.py's synthesis, checking the outputs, the
    recovered band shifts and stt translation, and that the stitched left
@@ -43,7 +45,8 @@ Phases (any failure exits non-zero and prints no result line):
 The last two lines of standard output are the kernels' JSON record
 (launches over phases 3 and 5, error, kernel, plain and bound ms at phase
 2's shapes, plus the scene shapes' ms and bound for (b) and (d) and the
-file commands' shapes' ms and bound for (c)) and
+file commands' shapes' ms and bound for (c), and each of (e)'s shapes'
+ms and bound) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -391,39 +394,94 @@ def phase_kernels(dev, records):
     records["stitch_tail"].update(scene_ms=scene["ms"],
                                   scene_bound_ms=scene["bound_ms"])
 
-    # (e) row pass: one 8192-row chunk of the staged remap at the camera
-    # width, row bound 10 (U = 24), floor(G) running 7..9 across the strip
-    rows, rb = 8192, 10
-    U = 2 * rb + 4
-    padded = torch.from_numpy(
-        (rng.random((rows + U - 1, W), dtype=np.float32) * 65535.0)).to(dev)
-    x = torch.arange(W, dtype=torch.float32, device=dev)
-    g = 8.5 + 1.4 * torch.sin(x * (6.0 / W))
-    check(set(torch.floor(g).int().unique().tolist()) == {7, 8, 9},
-          "row pass G floors")
-    cu = resample._row_pass_coeffs(g, rb)
-    got = resample._fast_row_pass_cuda(padded, cu, rows)
-    plain = resample._fast_row_pass_plain(padded, cu, rows)
-    torch.cuda.synchronize()
-    ulp = int((got.view(torch.int32) - plain.view(torch.int32)).abs().max())
-    err = float((got - plain).abs().max())
-    say(f"[e] row_pass: max {ulp} ulp, max |d| {err}")
-    check(ulp == 0, "row_pass vs plain not bit-exact")
+    phase_row_pass(dev, rng, records)
+
+
+def row_pass_bound(rows, width, n_taps) -> dict:
+    """Kernel (e): the padded strip and the weights read, the output written
+    (float32); U multiplies and U adds an output at the float32 peak."""
+    return bound(4 * ((rows + n_taps - 1) * width + n_taps * width
+                      + rows * width),
+                 operations=(2 * n_taps * rows * width, F32_FLOPS))
+
+
+def phase_row_pass(dev, rng, records):
+    """Kernel (e) at 0 ulp against its plain version: the staged remap's
+    8192-row chunk at the camera width for row bounds 10, 7 and 16 (U 24,
+    18, 36), row bound 30 (U 64) on 2048 rows, 8189 rows (no K or row tile
+    divides it), the widths 3072, 1000 and 1001 (odd: one column a thread)
+    and row bound 48 (U 100: the weights staged in chunks of taps); each
+    timed beside its bound.  Yardstick at U 18 / 24 / 36: the same sum as
+    cuDNN's depthwise conv1d (``groups=W``) on a channels-major copy made
+    outside the timing, within 1e-5 of the plain version's largest
+    magnitude (it rounds in its own order)."""
+    import torch
+    import torch.nn.functional as F
+
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    cases = (  # tag, rows, width, row bound; the first is the main shape
+        ("U24", 8192, W, 10), ("U18", 8192, W, 7), ("U36", 8192, W, 16),
+        ("U64", 2048, W, 30), ("rows 8189", 8189, W, 10),
+        ("width 3072", 8192, BW, 10), ("width 1000", 8192, 1000, 10),
+        ("width 1001", 8192, 1001, 10), ("U100", 1024, W, 48))
+    shapes = []
+    for tag, rows, width, rb in cases:
+        u = 2 * rb + 4
+        padded = torch.from_numpy(
+            rng.random((rows + u - 1, width), dtype=np.float32)
+            * 65535.0).to(dev)
+        x = torch.arange(width, dtype=torch.float32, device=dev)
+        g = (rb - 1.5) + 1.4 * torch.sin(x * (6.0 / width))
+        check(set(torch.floor(g).int().unique().tolist())
+              == {rb - 3, rb - 2, rb - 1}, f"row pass {tag}: G floors")
+        cu = resample._row_pass_coeffs(g, rb)
+        got = resample._fast_row_pass_cuda(padded, cu, rows)
+        plain = resample._fast_row_pass_plain(padded, cu, rows)
+        torch.cuda.synchronize()
+        ulp = int((got.view(torch.int32) - plain.view(torch.int32))
+                  .abs().max())
+        check(ulp == 0, f"row_pass {tag} vs plain: {ulp} ulp")
+        rec = dict(
+            case=tag, shape=f"padded ({rows + u - 1}, {width}) f32, U {u} "
+                            f"-> ({rows}, {width})",
+            max_ulp=ulp,
+            ms=time_ms(lambda: resample._fast_row_pass_cuda(padded, cu,
+                                                            rows), 20),
+            **row_pass_bound(rows, width, u))
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        if tag in ("U24", "U18", "U36"):
+            # cuDNN's depthwise conv1d: out[c, y] = sum_v w[c, v] x[c, y + v]
+            xt = padded.t().contiguous()[None]
+            wt = cu.t().contiguous()[:, None, :]
+            lib = F.conv1d(xt, wt, groups=width)[0].t()
+            err = float((lib - plain).abs().max())
+            scale = float(plain.abs().max())
+            check(err <= 1e-5 * scale,
+                  f"conv1d yardstick {tag}: max |d| {err} vs plain")
+            rec.update(library_ms=time_ms(
+                lambda: F.conv1d(xt, wt, groups=width), 10),
+                library_max_abs_err=err)
+            del xt, wt, lib
+        if tag == "U24":
+            rec["plain_ms"] = time_ms(
+                lambda: resample._fast_row_pass_plain(padded, cu, rows), 3)
+        say(f"[e] row_pass {json.dumps(rec)}")
+        shapes.append(rec)
+        del padded, got, plain
+        torch.cuda.empty_cache()
+    main = shapes[0]
     records["row_pass"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: resample._fast_row_pass_cuda(padded, cu, rows),
-                   20),
-        plain_ms=time_ms(
-            lambda: resample._fast_row_pass_plain(padded, cu, rows), 3),
-        library_ms=None,
-        shape=f"padded ({rows + U - 1}, {W}) f32, U {U} -> ({rows}, {W})",
-        # float32 in (padded strip, weights) and out; U multiply-adds an
-        # output pixel
-        **bound(4 * (padded.numel() + cu.numel() + rows * W),
-                operations=(2 * U * rows * W, F32_FLOPS)),
-    )
-    del padded, got, plain
-    say(f"[e] {records['row_pass']}")
+        max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"],
+        library="torch.nn.functional.conv1d(groups=W), cuDNN's depthwise "
+                "form of the same sum, on a channels-major copy",
+        shape=main["shape"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        shapes=[{k: r[k] for k in ("case", "ms", "bound_ms", "bound_share",
+                                   "library_ms") if k in r}
+                for r in shapes])
+    say(f"[e] {json.dumps(records['row_pass'])}")
 
 
 def f32(dev, *rows):
@@ -1101,7 +1159,8 @@ def main() -> int:
             **{k: r[k] for k in ("scene_ms", "scene_bound_ms", "gemm_only_ms",
                                  "scene_gemm_only_ms", "prestitch_ms",
                                  "prestitch_bound_ms", "align_ms",
-                                 "align_bound_ms") if k in r},
+                                 "align_bound_ms", "library", "shapes")
+               if k in r},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "oip_stitch_tail": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
     ],
-    "oip_row_pass": [_P, _P, _P, _I, _I, _I, _P],
+    "oip_row_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,9 @@ PyTorch versions):
   ``prestitch``, in fast mode: both require ``--fast`` (the parity route is
   not ported yet), and refuse ``--mesh`` and ``--profile``;
 * ``stitch`` (host concatenation of the CMOS halves);
-* ``scene`` (the whole scene on one device).
+* ``scene`` (the whole scene on one device): takes every flag of the JAX
+  CLI's ``scene`` and runs its checks, then refuses ``--mss2``, ``--mesh``,
+  ``--stream`` and ``--profile``.
 
 ``auxsep`` is not ported yet.  The file workflow (docs/sample-task.sh)::
 
@@ -75,12 +77,25 @@ def _add_port_flags(p: argparse.ArgumentParser, what: str) -> None:
                    help="torch device to run on (default cuda)")
 
 
+_UNPORTED = {
+    "--mss2": "the CMOS2 MSS alignment and MSS stitch",
+    "--mesh": "the multi-device route",
+    "--stream": "the streamed scene route",
+    "--profile": "the device profile",
+}
+
+
+def _refuse_flags(a, *flags: str) -> None:
+    """Refuse each of the JAX CLI's ``flags`` that is set: the port parses
+    them with the JAX spelling but does not run them yet."""
+    for flag in flags:
+        if getattr(a, flag[2:]):
+            raise UsageError(f"{flag}: {_UNPORTED[flag]} is not ported to "
+                             "the PyTorch package yet")
+
+
 def _refuse_unported(a) -> None:
-    if a.mesh:
-        raise UsageError("--mesh: the multi-device route is not ported to "
-                         "the PyTorch package yet")
-    if a.profile:
-        raise UsageError("--profile is not ported to the PyTorch package yet")
+    _refuse_flags(a, "--mesh", "--profile")
     if not a.fast:
         raise UsageError("the parity route (without --fast) is not ported to "
                          "the PyTorch package yet; pass --fast")
@@ -280,6 +295,13 @@ def _scene(argv) -> int:
     for b in range(1, 5):
         p.add_argument(f"--rrc-msb{b}", default="",
                        help=f"RRC CSV for CMOS1 MSS band #{b}")
+    p.add_argument("--mss2", default="",
+                   help="CMOS2 MSS raw image (not ported yet)")
+    for b in range(1, 5):
+        p.add_argument(f"--rrc-m2b{b}", default="",
+                       help=f"RRC CSV for CMOS2 MSS band #{b}")
+    p.add_argument("--out-mss", default="",
+                   help="stitched MSS output TIFF (with --mss2)")
     p.add_argument("--slices", type=int, default=C.IBCV_DEF_SLICES)
     p.add_argument("--ibc-sections", type=int, default=0,
                    help="registration sections (0 = auto from strip length)")
@@ -291,9 +313,18 @@ def _scene(argv) -> int:
     p.add_argument("-o", "--out", default="",
                    help="stitched PAN output (.TIFF or .RAW)")
     p.add_argument("--out-dir", default=None)
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="multi-device route (not ported yet)")
+    p.add_argument("--stream", action="store_true", default=False,
+                   help="stream the scene in sections (not ported yet)")
+    p.add_argument("--stream-section-lines", type=int, default=4096,
+                   help="PAN lines per streamed section (with --stream)")
+    p.add_argument("--profile", default="", metavar="DIR",
+                   help="device profile (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     a = p.parse_args(argv)
+    # the JAX CLI's checks, in its order
     if a.fold_cols < 2:
         raise UsageError("fold column value too small")
     if not (0.0 <= a.ibc_threshold < 1.0) or not (
@@ -301,12 +332,20 @@ def _scene(argv) -> int:
     ):
         raise UsageError("invalid threshold value")
     rrc_mss = (a.rrc_msb1, a.rrc_msb2, a.rrc_msb3, a.rrc_msb4)
+    rrc_mss2 = (a.rrc_m2b1, a.rrc_m2b2, a.rrc_m2b3, a.rrc_m2b4)
+    if any(rrc_mss2) and not a.mss2:
+        raise UsageError("--rrc-m2b* needs --mss2")
+    if a.out_mss and not a.mss2:
+        raise UsageError("--out-mss needs --mss2")
     for opt, f in (
         ("--pan1", a.pan1), ("--pan2", a.pan2), ("--mss", a.mss),
+        ("--mss2", a.mss2),
         ("--rrc-pan1", a.rrc_pan1), ("--rrc-pan2", a.rrc_pan2),
         *[(f"--rrc-msb{i}", f) for i, f in enumerate(rrc_mss, 1)],
+        *[(f"--rrc-m2b{i}", f) for i, f in enumerate(rrc_mss2, 1)],
     ):
         _require_file(f, opt)
+    _refuse_flags(a, "--mss2", "--mesh", "--stream", "--profile")
 
     from .models.scene import run_scene
 

@@ -6,8 +6,8 @@ PAN1/PAN2/MSS RAW strips and the RRC CSVs, runs
 device, reports the reference's validity failures with the same messages,
 and writes the CMOS1 ALIGNED.TIFF and the stitched PAN (RAW or TIFF).
 
-RAW/TIFF/CSV host IO and logging come from the JAX package's jax-free host
-modules (``constants``, ``formats``, ``io``, ``utils.logging``).
+RAW/TIFF/CSV host IO and logging come from the port's own host modules
+(``constants``, ``formats``, ``io``, ``utils.logging``).
 """
 
 from __future__ import annotations

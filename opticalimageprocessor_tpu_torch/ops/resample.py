@@ -326,6 +326,34 @@ def _fast_row_pass_plain(padded: torch.Tensor, cu: torch.Tensor,
     return acc
 
 
+# kernel (e)'s K output rows a thread and R-slot input ring (csrc/row_pass.cu)
+ROW_PASS_K, ROW_PASS_RING = 16, 24
+_ROW_PASS_THREADS = 64     # threads a block
+_ROW_PASS_TILE_ROWS = (256, 64)   # rows a block: preferred, least
+_ROW_PASS_SMEM = 48 * 1024        # bytes of weights a block stages
+
+
+def row_pass_geometry(rows: int, width: int, n_taps: int, n_sm: int,
+                      vec_ok: bool = True) -> tuple[int, int, int, int]:
+    """Kernel (e)'s launch geometry: ``(vec, threads, tile, chunk)``.  A
+    thread owns ``vec`` adjacent columns (2 where the width is even and
+    ``vec_ok`` says the pointers are 8-byte aligned, else 1); a block owns
+    ``threads * vec`` columns and a ``tile`` of rows (a multiple of K): 256
+    rows, halved down to 64 while the grid has fewer than 4 blocks an SM.
+    It stages the weights of ``chunk`` taps in shared memory at once: all of
+    them, rounded up to whole R-tap unrolled blocks, where they fit in 48
+    KB, else as many whole blocks as fit."""
+    vec = 2 if vec_ok and width % 2 == 0 else 1
+    cols = _ROW_PASS_THREADS * vec
+    n_col = -(-width // cols)
+    tile, least = _ROW_PASS_TILE_ROWS
+    while tile > least and n_col * -(-rows // tile) < 4 * n_sm:
+        tile //= 2
+    ring = ROW_PASS_RING
+    chunk = min(-(-n_taps // ring), _ROW_PASS_SMEM // (4 * cols * ring))
+    return vec, _ROW_PASS_THREADS, tile, ring * chunk
+
+
 def _fast_row_pass_cuda(padded: torch.Tensor, cu: torch.Tensor,
                         rows: int) -> torch.Tensor:
     if padded.dim() != 2 or cu.dim() != 2 or cu.shape[1] != padded.shape[1] \
@@ -338,11 +366,16 @@ def _fast_row_pass_cuda(padded: torch.Tensor, cu: torch.Tensor,
     if padded.dtype != torch.float32 or cu.dtype != torch.float32:
         raise ValueError("fast_row_pass: padded and cu must be float32")
     padded, cu = padded.contiguous(), cu.contiguous()
-    out = torch.empty((rows, padded.shape[1]), dtype=torch.float32,
+    width = padded.shape[1]
+    out = torch.empty((rows, width), dtype=torch.float32,
                       device=padded.device)
+    n_sm = torch.cuda.get_device_properties(
+        padded.device).multi_processor_count
+    vec_ok = all(t.data_ptr() % 8 == 0 for t in (padded, cu, out))
+    geometry = row_pass_geometry(rows, width, cu.shape[0], n_sm, vec_ok)
     _build.launch(
         "row_pass", "oip_row_pass", padded.data_ptr(), cu.data_ptr(),
-        out.data_ptr(), rows, padded.shape[1], cu.shape[0],
+        out.data_ptr(), rows, width, cu.shape[0], *geometry,
         _build.stream_of(padded),
     )
     return out

@@ -22,7 +22,7 @@ def _g(width, row_bound):
     return (mid + 1.7 * np.sin(x / (width / 7.0))).astype(np.float32)
 
 
-@pytest.mark.parametrize("row_bound", [3, 6, 10, 19])
+@pytest.mark.parametrize("row_bound", [3, 6, 10, 19, 30])
 def test_row_pass_plain_matches_jax(rng, row_bound):
     """The plain version against JAX's Pallas kernel (interpret mode) and
     its XLA form on [0, 1) inputs: atol 1e-5, the bar JAX holds its own
@@ -112,6 +112,35 @@ def test_remap_band_fast_g_override(rng):
     got = resample.remap_band_fast(src, cx, np.zeros(3, np.float32), 7,
                                    g_override=g).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rows, width, n_taps, vec_ok, want", [
+    # the staged remap's chunk at the camera width, U 24: 2 columns a
+    # thread, 256-row tiles, every tap's weights staged at once
+    (8192, 12288, 24, True, (2, 256, 24)),
+    (8189, 12288, 36, True, (2, 256, 48)),   # no K or tile divides 8189
+    (8192, 3072, 64, True, (2, 256, 72)),    # a band's width, U 64
+    (8192, 1000, 24, True, (2, 64, 24)),     # 8 column blocks: least tile
+    (8192, 1001, 24, True, (1, 128, 24)),    # odd width: 1 column a thread
+    (8192, 12288, 24, False, (1, 256, 24)),  # pointers not 8-byte aligned
+    (64, 12288, 5000, True, (2, 64, 96)),    # U past 48 KB: chunks of taps
+    (1, 1, 1, True, (1, 64, 24)),
+])
+def test_row_pass_geometry(rows, width, n_taps, vec_ok, want):
+    """The launch geometry the kernel's entry accepts: a tile that is a
+    multiple of K, 256 rows halved down to 64 while the grid has fewer
+    than 4 blocks an SM (132 SMs); a weight chunk of whole ring-length
+    unrolled blocks within 48 KB of shared memory."""
+    vec, threads, tile, chunk = resample.row_pass_geometry(
+        rows, width, n_taps, 132, vec_ok)
+    assert (vec, tile, chunk) == want
+    assert tile % resample.ROW_PASS_K == 0
+    assert threads % 32 == 0 and 32 <= threads <= 256 and width % vec == 0
+    assert chunk % resample.ROW_PASS_RING == 0
+    assert 4 * chunk * threads * vec <= 48 * 1024
+    n_col = -(-width // (threads * vec))
+    assert tile == 64 or n_col * -(-rows // tile) >= 4 * 132
+    assert tile == 256 or n_col * -(-rows // (2 * tile)) < 4 * 132
 
 
 def test_row_pass_on_cpu_launches_nothing(rng):

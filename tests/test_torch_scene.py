@@ -196,14 +196,34 @@ def test_cli_scene_runs_at_camera_width(wide_scene):
     assert aligned.shape == (256, 3072, 4)
 
 
-@pytest.mark.parametrize("case", ["fold_too_small", "missing_pan1"])
-def test_cli_scene_usage_errors(wide_scene, case):
+@pytest.mark.parametrize("case", [
+    "fold_too_small", "missing_pan1", "mss2", "mesh", "stream", "profile",
+    "rrc_m2b_needs_mss2", "out_mss_needs_mss2", "missing_mss2",
+])
+def test_cli_scene_usage_errors(wide_scene, case, capsys):
+    """Usage errors exit 254 before any work, with the JAX CLI's checks and
+    messages; the JAX flags the port does not run yet are refused by
+    name."""
     d, files = wide_scene
-    if case == "fold_too_small":
-        argv = _argv(files, d, "-c", "1")
-    else:
-        argv = _argv(dict(files, pan1=os.path.join(d, "nope.RAW")), d)
-    assert cli.main(argv) == 254
+    nope = os.path.join(d, "nope.RAW")
+    extra, said = {
+        "fold_too_small": (["-c", "1"], "fold column value too small"),
+        "missing_pan1": ([], f"--pan1: File does not exist: {nope}"),
+        "mss2": (["--mss2", files["mss"]], "--mss2: the CMOS2 MSS"),
+        "mesh": (["--mesh", "2"], "--mesh: the multi-device route"),
+        "stream": (["--stream"], "--stream: the streamed scene route"),
+        "profile": (["--profile", d], "--profile: the device profile"),
+        "rrc_m2b_needs_mss2": (["--rrc-m2b1", files["rrc_msb1"]],
+                               "--rrc-m2b* needs --mss2"),
+        "out_mss_needs_mss2": (["--out-mss", os.path.join(d, "M.TIFF")],
+                               "--out-mss needs --mss2"),
+        "missing_mss2": (["--mss2", nope],
+                         f"--mss2: File does not exist: {nope}"),
+    }[case]
+    f = dict(files, pan1=nope) if case == "missing_pan1" else files
+    capsys.readouterr()
+    assert cli.main(_argv(f, d, *extra)) == 254
+    assert f"USAGE ERROR: {said}" in capsys.readouterr().out
 
 
 def test_cli_scene_runtime_error_is_rc2(wide_scene):
