@@ -26,11 +26,16 @@ Phases (any failure exits non-zero and prints no result line):
    whitening"), which the port never calls; kernel (e) at 9 shapes (U 18
    to 100, 8189 rows, widths 1000 / 1001 / 3072), at 0 ulp, beside cuDNN's
    depthwise conv1d of the same sum (also never called by the port);
-3. the CLI entry (``cli.main(["scene", ...])``) on a 16384-line scene of
-   RAW files built like bench.py's synthesis, checking the outputs, the
-   recovered band shifts and stt translation, and that the stitched left
-   half is RRC(PAN1) byte for byte -- with every kernel's launch count
-   read around this run;
+   kernel (c) also at MSS2's row bound 6 on the scene's 4 bands, and (d)
+   at a streamed section's shape (4116 rows) with the prestitched PAN2
+   written out;
+3. the CLI entry (``cli.main(["scene", "--mss2", ...])``: the whole
+   sample-task workflow) on a 16384-line scene of RAW files built like
+   bench.py's synthesis plus a CMOS2 MSS, checking the outputs' shapes,
+   the recovered band shifts of both CMOS and the stt translation, that
+   the stitched left half is RRC(PAN1) and the stitched MSS the two
+   ALIGNED.TIFFs byte for byte -- with every kernel's launch count read
+   around this run;
 4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
    path against the plain path with pinned estimates, then timed;
 5. the file workflow through ``cli.main`` on 16384-line RAW files:
@@ -40,13 +45,21 @@ Phases (any failure exits non-zero and prints no result line):
    recovered translations and band rolls, the RRC files against a numpy
    oracle byte for byte, the PRESTT files and the ALIGNED.TIFF against the
    plain route at 0 DN, and the stitched raster's left half against PAN1,
-   with the launch counts read around each command.
+   with the launch counts read around each command;
+6. the streamed route: ``scene --stream --mss2`` and the resident
+   ``scene --mss2`` through ``cli.main`` on one 34816-line RAW scene in
+   4096-line sections, every output byte-identical and the streamed
+   PRESTT.RAW equal to the resident prestitched PAN2, with the launches a
+   section; each route's estimate and transform called directly for its
+   peak device memory (the streamed transform below a quarter of the
+   resident one), and one streamed transform under torch.profiler (copy
+   and kernel ms, their union).
 
 The last two lines of standard output are the kernels' JSON record
-(launches over phases 3 and 5, error, kernel, plain and bound ms at phase
-2's shapes, plus the scene shapes' ms and bound for (b) and (d) and the
-file commands' shapes' ms and bound for (c), and each of (e)'s shapes'
-ms and bound) and
+(launches over phases 3, 5 and 6, error, kernel, plain and bound ms at
+phase 2's shapes, plus the scene shapes' ms and bound for (b) and (d), the
+streamed section's for (d), the file commands' and MSS2's shapes' ms and
+bound for (c), and each of (e)'s shapes' ms and bound) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -143,11 +156,12 @@ def crosspower_bound(tiles, bands, M, keep, m, n, wx) -> dict:
     return r
 
 
-def stitch_bound(rows, width, fold) -> dict:
+def stitch_bound(rows, width, fold, want_prestt=False) -> dict:
     """Kernel (d): both PANs read (uint16), the (rows, 2*(W - fold)) raster
-    written, four float64 parameter rows."""
+    written (and with ``want_prestt`` the (rows, W) prestitched PAN2), four
+    float64 parameter rows."""
     return bound(2 * 2 * rows * width + 2 * rows * 2 * (width - fold)
-                 + 4 * 8 * width)
+                 + (2 * rows * width if want_prestt else 0) + 4 * 8 * width)
 
 
 def dn_diff(a, b):
@@ -163,11 +177,19 @@ def rand_params(rng, *shape):
     return k, b
 
 
-def synth_scene(torch, rng, lines_pan, dev, dy=2):
+def mss2_rolls():
+    """Band b of the synthetic CMOS2 MSS is the scene rolled by these
+    (rows, columns): its own roll ((b + 1) mod 2, 1 - b) plus the columns
+    that put it under the prestitched PAN2 ((FOLD_COLS - W) / 4 band px)."""
+    return [((b + 1) % 2, (FOLD_COLS - W) // 4 + 1 - b) for b in range(4)]
+
+
+def synth_scene(torch, rng, lines_pan, dev, dy=2, mss2=False):
     """bench.py:217-233's synthesis with the port's upsample4_f32: PAN1 =
     x4 cubic upsample of a noise scene, PAN2 = PAN1 rolled by (dy, dx -3)
     so its left 200 columns see PAN1's right edge, band b = the scene
-    rolled by (b mod 2, b - 1).  bench.py's dy is +2; at that offset (half
+    rolled by (b mod 2, b - 1); with ``mss2`` also CMOS2's MSS, the scene
+    rolled by :func:`mss2_rolls`.  bench.py's dy is +2; at that offset (half
     a scene pixel) the upsampled content's correlation peak is flat-topped
     and the 5x5 centroid reads ~1.66 in the JAX package and the port
     alike, so the run that checks the recovered translation uses +3."""
@@ -184,7 +206,11 @@ def synth_scene(torch, rng, lines_pan, dev, dy=2):
     mss = torch.stack(
         [torch.roll(scene, (b % 2, b - 1), (0, 1)) for b in range(4)]
     ).to(torch.uint16)
-    return pan1, pan2, mss
+    if not mss2:
+        return pan1, pan2, mss
+    return pan1, pan2, mss, torch.stack(
+        [torch.roll(scene, r, (0, 1)) for r in mss2_rolls()]
+    ).to(torch.uint16)
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +419,34 @@ def phase_kernels(dev, records):
     say(f"[d] scene shape: {json.dumps(scene)}")
     records["stitch_tail"].update(scene_ms=scene["ms"],
                                   scene_bound_ms=scene["bound_ms"])
+    # a streamed section's shape: 4096 rows + the 2 x 10 halo rows of the
+    # prestitch's row bound 8, with the prestitched PAN2 written out (--mss2)
+    rows = 4096 + 20
+    p1 = torch.from_numpy(
+        rng.integers(0, 65536, (rows, W), dtype=np.uint16)).to(dev)
+    p2 = torch.from_numpy(
+        rng.integers(0, 65536, (rows, W), dtype=np.uint16)).to(dev)
+    skw = dict(block=128, halo=16, want_prestt=True)
+    for dx, dy in ((-2.7, 1.6), (14.0, -6.0)):
+        a = (p1, p2, k1, b1, k2, b2, dx, dy, fold)
+        got = resample._stitch_tail_cuda(*a, **skw)
+        plain = resample._stitch_tail_plain(*a, **skw)
+        torch.cuda.synchronize()
+        d = [dn_diff(g, q)[0] for g, q in zip(got, plain)]
+        say(f"[d] section (4116, 12288) with prestt, dx {dx} dy {dy}: "
+            f"stitched max {d[0]} DN, prestt max {d[1]} DN")
+        check(d == [0, 0], "stitch tail with prestt vs plain")
+    a = (p1, p2, k1, b1, k2, b2, -2.7, 1.6, fold)
+    section = dict(
+        ms=time_ms(lambda: resample._stitch_tail_cuda(*a, **skw), 20),
+        shape="(4116, 12288) u16 pair -> (4116, 24376) + prestt (4116, "
+              "12288)",
+        **stitch_bound(rows, W, fold, want_prestt=True))
+    del p1, p2, got, plain
+    torch.cuda.empty_cache()
+    say(f"[d] streamed section shape: {json.dumps(section)}")
+    records["stitch_tail"].update(section_ms=section["ms"],
+                                  section_bound_ms=section["bound_ms"])
 
     phase_row_pass(dev, rng, records)
 
@@ -549,6 +603,19 @@ def phase_remap(dev, rng, records):
               "block 128, halo 16",
         **bound(4 * bands.numel()),
     )
+    # CMOS2's MSS (MssAlign): the same interleaved shape at row bound 6,
+    # the fitted shifts of MSS2_ROLLS plus a prestitch residue in G
+    cx2 = f32(dev, *([4.0 * (1 - b) + 0.2, 1.3e-4] for b in range(4)))
+    cy2 = f32(dev, *([4.0 * ((b + 1) % 2) + 0.35, -4.1e-4, 2.0e-7]
+                     for b in range(4)))
+    kw = dict(row_bound=6, block=128, halo=16)
+    worst = max(worst, held("mss2 4 x (8192, 3072) rb 6", bands, cx2, cy2,
+                            **kw))
+    worst = max(worst, held("dropped taps, rb 6", bands, cx_d, cy_d, **kw))
+    rec.update(
+        mss2_ms=time_ms(
+            lambda: resample._remap_bands_cuda(bands, cx2, cy2, **kw), 20),
+        **{f"mss2_{k}": v for k, v in bound(4 * bands.numel()).items()})
     del bands
     # the prestitch of PAN2: a constant (dx, dy) = (-3, 2.6) shift
     pan = torch.from_numpy(
@@ -601,51 +668,128 @@ def _tiff_shape(path):
     return info.width, info.height, info.samples
 
 
-def phase_cli(dev, tmp: Path, lines: int = 16384):
-    import torch
-
-    from opticalimageprocessor_tpu_torch import _build, cli
-
-    rng = np.random.default_rng(SEED + 1)
-    pan1, pan2, mss = synth_scene(torch, rng, lines, dev, dy=3)
-    files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS")}
+def write_scene_files(torch, rng, lines, dev, tmp: Path, dy):
+    """A synthetic scene with CMOS2's MSS as RAW files in ``tmp``, and
+    random RRC CSVs: -> (files, RRC (k, b) by name, PAN1 on the host)."""
+    pan1, pan2, mss, mss2 = synth_scene(torch, rng, lines, dev, dy=dy,
+                                        mss2=True)
+    files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS", "MSS2")}
     pan1_h = pan1.cpu().numpy()
     pan1_h.tofile(files["PAN1"])
     pan2.cpu().numpy().tofile(files["PAN2"])
     mss.cpu().numpy().transpose(1, 0, 2).tofile(files["MSS"])
-    del pan1, pan2, mss
-    k1, b1 = rand_params(rng, W)
-    csv = {"pan1": (k1, b1), "pan2": rand_params(rng, W)}
+    mss2.cpu().numpy().transpose(1, 0, 2).tofile(files["MSS2"])
+    del pan1, pan2, mss, mss2
+    csv = {"pan1": rand_params(rng, W), "pan2": rand_params(rng, W)}
     for b in range(1, 5):
         csv[f"msb{b}"] = rand_params(rng, BW)
-    argv = ["scene", "--pan1", str(files["PAN1"]), "--pan2",
-            str(files["PAN2"]), "--mss", str(files["MSS"]), "-c",
-            str(FOLD_COLS), "--out-dir", str(tmp), "-o",
-            str(tmp / "STITCHED.RAW"), "--device", dev.type]
+    for b in range(1, 5):
+        csv[f"m2b{b}"] = rand_params(rng, BW)
     for name, (k, b) in csv.items():
         _write_csv(tmp / f"{name}.csv", k, b)
-        argv += [f"--rrc-{name}", str(tmp / f"{name}.csv")]
+    return files, csv, pan1_h
 
+
+def scene_argv(files, tmp: Path, out: Path, dev, *extra):
+    """``cli.main``'s argv of ``scene --mss2`` on :func:`write_scene_files`'
+    files, writing into ``out``."""
+    argv = ["scene", "--pan1", str(files["PAN1"]), "--pan2",
+            str(files["PAN2"]), "--mss", str(files["MSS"]), "--mss2",
+            str(files["MSS2"]), "-c", str(FOLD_COLS), "--out-dir", str(out),
+            "-o", str(out / "STITCHED.RAW"), "--out-mss",
+            str(out / "STITCHED_MSS.TIFF"), "--device", dev.type]
+    for name in ("pan1", "pan2", *(f"msb{b}" for b in range(1, 5)),
+                 *(f"m2b{b}" for b in range(1, 5))):
+        argv += [f"--rrc-{name}", str(tmp / f"{name}.csv")]
+    return argv + list(extra)
+
+
+def run_cli(tag, argv, prefix):
+    """``cli.main(argv)`` with the launch counts set to 0 just before it and
+    read just after: -> (launches, wall s, this run's log text).  Prints
+    each stage() span of the run (seconds, MB/s)."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch import _build, cli
+
+    log = Path(os.environ["LOGFILE"])
+    mark = log.stat().st_size if log.exists() else 0
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    say(f"[cli] scene rc {rc} in {secs:.3f} s; launches {launches}")
-    check(rc == 0, f"cli scene exit code {rc}")
+    say(f"[{prefix}] {tag}: rc {rc} in {secs:.3f} s; launches {launches}")
+    check(rc == 0, f"{tag} exit code {rc}")
+    text = log.read_bytes()[mark:].decode()
+    for m in re.finditer(r"\] \[([^\]]+)\] (.*(?:MBps\)|seconds))\.$",
+                         text, re.M):
+        say(f"[{prefix}] {tag} stage {m.group(1)}: {m.group(2)}")
+    return launches, secs, text
+
+
+def fitted_shifts(text):
+    """Every band fit's [0] coefficients (cx0, cy0) in a run's log, in
+    order (CMOS1's 4 bands, then MSS2's)."""
+    cx0 = [float(x) for x in re.findall(r"deltaX coeff: .*\[0\] (\S+)",
+                                        text)]
+    cy0 = [float(x) for x in re.findall(r"deltaY coeff: .*\[0\] (\S+)",
+                                        text)]
+    return cx0, cy0
+
+
+def same_file(a: Path, b: Path, block: int = 1 << 26) -> bool:
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(block)
+            if x != fb.read(block):
+                return False
+            if not x:
+                return True
+
+
+def phase_cli(dev, tmp: Path, lines: int = 16384):
+    """``scene --mss2`` through ``cli.main`` on a 16384-line scene: the
+    outputs' shapes, the recovered band shifts of both CMOS and the stt
+    translation, the stitched left half against RRC(PAN1), the stitched
+    MSS against the two ALIGNED.TIFFs, and the launches."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.io import tiff
+
+    rng = np.random.default_rng(SEED + 1)
+    files, csv, pan1_h = write_scene_files(torch, rng, lines, dev, tmp, dy=3)
+    k1, b1 = csv["pan1"]
+    launches, _, text = run_cli("scene --mss2", scene_argv(files, tmp, tmp,
+                                                           dev), "cli")
     check(all(launches[k] > 0 for k in
               ("rrc", "crosspower", "remap_band", "stitch_tail"))
           and launches["row_pass"] == 0,
           f"the scene path's kernels (a)-(d) did not all launch: {launches}")
-    check(launches["remap_band"] == 1,
-          f"the scene's 4 band remaps took {launches['remap_band']} kernel-(c) "
-          "launches, not 1")
+    check(launches["crosspower"] == 2 and launches["remap_band"] == 2,
+          "the scene's 2 registrations and 2 x 4 band remaps took "
+          f"{launches['crosspower']} kernel-(b) and {launches['remap_band']} "
+          "kernel-(c) launches, not 2 and 2")
 
-    aligned = list(tmp.glob("*.ALIGNED.TIFF"))
-    check(len(aligned) == 1, f"ALIGNED.TIFF missing: {aligned}")
-    shape = _tiff_shape(aligned[0])
+    shape = _tiff_shape(tmp / "MSS.ALIGNED.TIFF")
     check(shape == (BW, lines // 4, 4), f"aligned TIFF shape {shape}")
+    shape = _tiff_shape(tmp / "MSS2.ALIGNED.TIFF")
+    check(shape == (BW, lines // 4, 4), f"aligned2 TIFF shape {shape}")
+    fh = max(1, FOLD_COLS // 8)
+    shape = _tiff_shape(tmp / "STITCHED_MSS.TIFF")
+    check(shape == (2 * (BW - fh), lines // 4, 4),
+          f"stitched MSS TIFF shape {shape}")
+    al1 = tiff.read_tiff(str(tmp / "MSS.ALIGNED.TIFF"))
+    al2 = tiff.read_tiff(str(tmp / "MSS2.ALIGNED.TIFF"))
+    check(np.array_equal(tiff.read_tiff(str(tmp / "STITCHED_MSS.TIFF")),
+                         np.concatenate([al1[:, :BW - fh], al2[:, fh:]], 1)),
+          "stitched MSS != the two ALIGNED.TIFFs cut at the MSS fold")
+    del al1, al2
+    say(f"[cli] stitched MSS == ALIGNED[:, :{BW - fh}] ++ ALIGNED2[:, {fh}:] "
+        "byte for byte")
     out_w = 2 * (W - FOLD_COLS // 2)
     st = np.fromfile(tmp / "STITCHED.RAW", dtype="<u2")
     check(st.size == lines * out_w, f"stitched size {st.size}")
@@ -658,15 +802,19 @@ def phase_cli(dev, tmp: Path, lines: int = 16384):
               "stitched left half != RRC(PAN1)")
     say("[cli] stitched left half == RRC(PAN1) byte for byte")
 
-    log = Path(os.environ["LOGFILE"]).read_text()
-    cx0 = [float(x) for x in re.findall(r"deltaX coeff: .*\[0\] (\S+)", log)]
-    cy0 = [float(x) for x in re.findall(r"deltaY coeff: .*\[0\] (\S+)", log)]
-    stt = re.findall(r"everage value: dx: (\S+), dy: (\S+)", log)
+    cx0, cy0 = fitted_shifts(text)
+    stt = re.findall(r"everage value: dx: (\S+), dy: (\S+)", text)
     say(f"[cli] cx0 {cx0} cy0 {cy0} stt {stt}")
-    check(len(cx0) == 4 and len(cy0) == 4 and len(stt) == 1, "log parse")
+    check(len(cx0) == 8 and len(cy0) == 8 and len(stt) == 1, "log parse")
     for b in range(4):
         check(abs(cx0[b] - 4 * (b - 1)) < 0.3, f"band {b + 1} cx0 {cx0[b]}")
         check(abs(cy0[b] - 4 * (b % 2)) < 0.3, f"band {b + 1} cy0 {cy0[b]}")
+    for b, (dr, dc) in enumerate(mss2_rolls()):
+        own = dc - (FOLD_COLS - W) // 4
+        check(abs(cx0[4 + b] - 4 * own) < 0.3,
+              f"MSS2 band {b + 1} cx0 {cx0[4 + b]}")
+        check(abs(cy0[4 + b] - 4 * dr) < 0.3,
+              f"MSS2 band {b + 1} cy0 {cy0[4 + b]}")
     dx, dy = (float(v) for v in stt[0])
     check(abs(dx + 3) < 0.2 and abs(dy - 3) < 0.2, f"stt {dx}, {dy}")
     return launches
@@ -969,6 +1117,181 @@ def phase_files(dev, tmp: Path, lines: int = 16384):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the streamed scene against the resident one
+# ---------------------------------------------------------------------------
+
+def _stream_writers(out: Path, lines):
+    """Writers of a streamed transform's three outputs into ``out`` (the
+    CLI's: aligned TIFF in BGRA order, stitched and prestt RAW)."""
+    from opticalimageprocessor_tpu_torch.io import raw, tiff
+
+    aligned = tiff.TiffStripWriter(str(out / "A.TIFF"), BW, lines // 4,
+                                   samples=4)
+    stitched = raw.RawStripWriter(str(out / "S.RAW"),
+                                  2 * (W - FOLD_COLS // 2))
+    prestt = raw.RawStripWriter(str(out / "P.RAW"), W)
+    sinks = (lambda blk: aligned.write_rows(blk[:, :, [2, 1, 0, 3]]),
+             stitched.write_lines, prestt.write_lines)
+    return sinks, (aligned, stitched, prestt)
+
+
+def _peak_gb(fn):
+    """Run ``fn`` after resetting the peak: -> (its result, the peak device
+    memory allocated during it in GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _copy_class(name: str) -> str:
+    low = name.lower()
+    if "htod" in low:
+        return "h2d"
+    if "dtoh" in low:
+        return "d2h"
+    return "d2d" if "memcpy" in low else "kernels"
+
+
+def phase_stream(dev, power, tmp: Path, lines: int = 34816,
+                 section: int = 4096):
+    """``scene --stream --mss2`` and the resident ``scene --mss2`` through
+    ``cli.main`` on one 34816-line RAW scene (8 whole 4096-line sections
+    and one of 2048): every output byte-identical, the streamed PRESTT.RAW
+    equal to ScenePipeline(return_prestt=True)'s, the launches a section;
+    then each route's estimate and transform called directly for their
+    peak device memory (the streamed transform's below a quarter of the
+    resident one's), and one streamed transform under torch.profiler:
+    host->device and device->host copy ms, kernel ms, their union."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opticalimageprocessor_tpu_torch.io.raw import RawStrip
+    from opticalimageprocessor_tpu_torch.models import scene, scene_stream
+
+    rng = np.random.default_rng(SEED + 4)
+    files, _, pan1_h = write_scene_files(torch, rng, lines, dev, tmp, dy=3)
+    del pan1_h
+    n_secs = -(-lines // section)
+    res = {"lines": lines, "section_lines": section, "sections": n_secs,
+           "card": power}
+    outs = {}
+    for route, extra in (("stream", ["--stream", "--stream-section-lines",
+                                     str(section)]), ("resident", [])):
+        out = tmp / route
+        out.mkdir()
+        launches, secs, text = run_cli(
+            route, scene_argv(files, tmp, out, dev, *extra), "stream")
+        res[f"{route}_wall_s"] = secs
+        res[f"{route}_launches"] = launches
+        outs[route] = out
+        # (c): one launch a section for each CMOS; (d): one a section
+        want_c, want_d = ((2 * n_secs, n_secs) if route == "stream"
+                          else (2, 1))
+        check(launches["remap_band"] == want_c
+              and launches["stitch_tail"] == want_d
+              and launches["crosspower"] == 2 and launches["row_pass"] == 0
+              and launches["rrc"] > 0,
+              f"{route}: launches {launches}, want (c) {want_c}, (d) "
+              f"{want_d}, (b) 2, (e) 0")
+        check(len(fitted_shifts(text)[0]) == 8, f"{route}: log parse")
+    for name in ("MSS.ALIGNED.TIFF", "STITCHED.RAW", "MSS2.ALIGNED.TIFF",
+                 "STITCHED_MSS.TIFF"):
+        check(same_file(outs["stream"] / name, outs["resident"] / name),
+              f"streamed {name} != resident {name}")
+    say("[stream] ALIGNED, stitched, ALIGNED2 and stitched MSS: streamed == "
+        "resident byte for byte")
+    shutil.rmtree(outs["resident"])
+
+    # each route's phases called directly, with their peak device memory
+    csv = lambda n: str(tmp / f"{n}.csv")  # noqa: E731
+    pipe = scene.scene_pipeline(
+        csv("pan1"), csv("pan2"), [csv(f"msb{b}") for b in range(1, 5)], W,
+        10, None, FOLD_COLS, 10, 0.4, 0.4, 0.0, return_prestt=True).to(dev)
+    strips = [RawStrip(str(files[n]), W) for n in ("PAN1", "PAN2", "MSS")]
+    # the streamed estimate first, while no strip is on the card
+    est_s, res["stream_estimate_peak_gb"] = _peak_gb(
+        lambda: scene_stream.estimate_streamed(pipe, *strips, dev))
+    torch.cuda.empty_cache()
+    pan1, pan2 = (torch.from_numpy(np.array(s._mm)).to(dev)
+                  for s in strips[:2])
+    mss = scene.load_bands(strips[2], dev)
+    est, res["resident_estimate_peak_gb"] = _peak_gb(
+        lambda: pipe.estimate(pan1, pan2, mss))
+    check(all(torch.equal(a, b) for a, b in zip(est, est_s)),
+          "estimate_streamed != ScenePipeline.estimate")
+    say("[stream] estimate_streamed == ScenePipeline.estimate bit for bit")
+    params = (*est[:2], *est[3:5])
+    outs_r, res["resident_transform_peak_gb"] = _peak_gb(
+        lambda: pipe.transform(pan1, pan2, mss, *params))
+    prestt = outs_r[2]
+    del pan1, pan2, mss, outs_r
+    got = np.memmap(outs["stream"] / "PAN2.PRESTT.RAW", dtype="<u2",
+                    mode="r").reshape(lines, W)
+    for a in range(0, lines, 4096):
+        check(np.array_equal(got[a:a + 4096], prestt[a:a + 4096].cpu().numpy()),
+              "streamed PRESTT.RAW != ScenePipeline's prestitched PAN2")
+    del got, prestt
+    torch.cuda.empty_cache()
+    say("[stream] PRESTT.RAW == ScenePipeline(return_prestt=True)'s prestt")
+    shutil.rmtree(outs["stream"])
+
+    def streamed(out):
+        out.mkdir()
+        sinks, writers = _stream_writers(out, lines)
+        t0 = time.perf_counter()
+        scene_stream.transform_streamed(pipe, *strips, *params, *sinks,
+                                        section_rows=section, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for w in writers:
+            w.close()
+        shutil.rmtree(out)
+        return wall
+
+    res["stream_transform_wall_s"], res["stream_transform_peak_gb"] = \
+        _peak_gb(lambda: streamed(tmp / "direct"))
+    say("[stream] peak device memory (GB): " + json.dumps(
+        {k: v for k, v in res.items() if k.endswith("peak_gb")}))
+    check(res["stream_transform_peak_gb"]
+          < res["resident_transform_peak_gb"] / 4,
+          "the streamed transform's peak device memory is not below a "
+          "quarter of the resident transform's")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = streamed(tmp / "profiled")
+    with tempfile.TemporaryDirectory(prefix="oip_prof_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev_ev = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    check(bool(dev_ev), "the profiler recorded no device time")
+    spans: dict[str, list] = {}
+    for e in dev_ev:
+        spans.setdefault(_copy_class(e["name"]), []).append(
+            (e["ts"], e["ts"] + e["dur"]))
+    prof_res = {f"{k}_ms": _union_ms(v) for k, v in sorted(spans.items())}
+    prof_res.update(
+        profiled_wall_ms=wall * 1e3,
+        union_ms=_union_ms(iv for v in spans.values() for iv in v),
+        summed_ms=sum(e["dur"] for e in dev_ev) / 1e3,
+        copies_union_ms=_union_ms(spans.get("h2d", []) + spans.get("d2h",
+                                                                    [])))
+    res["profile"] = prof_res
+    say(f"[stream] {json.dumps(res)}")
+    launches = {k: res["stream_launches"][k] + res["resident_launches"][k]
+                for k in res["stream_launches"]}
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the device time of one forward goes
 # ---------------------------------------------------------------------------
 
@@ -1120,7 +1443,7 @@ def main() -> int:
     phase_kernels(dev, records)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="oip_smoke_") as tmp:
-        # one log for phases 3 and 5: the logger opens LOGFILE once
+        # one log for phases 3, 5 and 6: the logger opens LOGFILE once
         os.environ["LOGFILE"] = os.path.join(tmp, "oip.log")
         scene_dir, files_dir = Path(tmp, "scene"), Path(tmp, "files")
         scene_dir.mkdir()
@@ -1131,9 +1454,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         files_dir.mkdir()
         files_launches = phase_files(dev, files_dir)
-    launches = {k: launches[k] + files_launches[k] for k in launches}
+        shutil.rmtree(files_dir)
+        torch.cuda.empty_cache()
+        stream_dir = Path(tmp, "stream")
+        stream_dir.mkdir()
+        stream_launches = phase_stream(dev, power, stream_dir)
+    launches = {k: launches[k] + files_launches[k] + stream_launches[k]
+                for k in launches}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel was never launched in phases 3 and 5: {launches}")
+          f"a kernel was never launched in phases 3, 5 and 6: {launches}")
 
     replaces = {
         "rrc": ("opticalimageprocessor_tpu_torch/csrc/rrc.cu",
@@ -1159,7 +1488,9 @@ def main() -> int:
             **{k: r[k] for k in ("scene_ms", "scene_bound_ms", "gemm_only_ms",
                                  "scene_gemm_only_ms", "prestitch_ms",
                                  "prestitch_bound_ms", "align_ms",
-                                 "align_bound_ms", "library", "shapes")
+                                 "align_bound_ms", "mss2_ms", "mss2_bound_ms",
+                                 "section_ms", "section_bound_ms", "library",
+                                 "shapes")
                if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

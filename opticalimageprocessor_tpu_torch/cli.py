@@ -9,8 +9,9 @@ PyTorch versions):
   not ported yet), and refuse ``--mesh`` and ``--profile``;
 * ``stitch`` (host concatenation of the CMOS halves);
 * ``scene`` (the whole scene on one device): takes every flag of the JAX
-  CLI's ``scene`` and runs its checks, then refuses ``--mss2``, ``--mesh``,
-  ``--stream`` and ``--profile``.
+  CLI's ``scene`` and runs its checks; runs the resident route, or with
+  ``--stream`` the streamed one, each with or without ``--mss2`` (the
+  whole sample-task workflow), and refuses ``--mesh`` and ``--profile``.
 
 ``auxsep`` is not ported yet.  The file workflow (docs/sample-task.sh)::
 
@@ -78,9 +79,7 @@ def _add_port_flags(p: argparse.ArgumentParser, what: str) -> None:
 
 
 _UNPORTED = {
-    "--mss2": "the CMOS2 MSS alignment and MSS stitch",
     "--mesh": "the multi-device route",
-    "--stream": "the streamed scene route",
     "--profile": "the device profile",
 }
 
@@ -284,7 +283,7 @@ def _scene(argv) -> int:
         description=(
             "Whole-scene pipeline: RRC + registration + alignment + "
             "prestitch + stitch on one device (fast-mode semantics; the "
-            "scene must fit in device memory)"
+            "scene must fit in device memory unless --stream)"
         ),
     )
     p.add_argument("--pan1", required=True, help="CMOS1 PAN raw image")
@@ -296,7 +295,8 @@ def _scene(argv) -> int:
         p.add_argument(f"--rrc-msb{b}", default="",
                        help=f"RRC CSV for CMOS1 MSS band #{b}")
     p.add_argument("--mss2", default="",
-                   help="CMOS2 MSS raw image (not ported yet)")
+                   help="CMOS2 MSS raw image: also align it against the "
+                        "prestitched PAN2 and stitch the MSS pair")
     for b in range(1, 5):
         p.add_argument(f"--rrc-m2b{b}", default="",
                        help=f"RRC CSV for CMOS2 MSS band #{b}")
@@ -316,7 +316,8 @@ def _scene(argv) -> int:
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="multi-device route (not ported yet)")
     p.add_argument("--stream", action="store_true", default=False,
-                   help="stream the scene in sections (not ported yet)")
+                   help="stream the scene in sections (bounded device "
+                        "memory, same outputs)")
     p.add_argument("--stream-section-lines", type=int, default=4096,
                    help="PAN lines per streamed section (with --stream)")
     p.add_argument("--profile", default="", metavar="DIR",
@@ -345,18 +346,28 @@ def _scene(argv) -> int:
         *[(f"--rrc-m2b{i}", f) for i, f in enumerate(rrc_mss2, 1)],
     ):
         _require_file(f, opt)
-    _refuse_flags(a, "--mss2", "--mesh", "--stream", "--profile")
+    _refuse_flags(a, "--mesh", "--profile")
 
-    from .models.scene import run_scene
-
-    run_scene(
-        a.pan1, a.pan2, a.mss, a.rrc_pan1, a.rrc_pan2, rrc_mss,
+    kw = dict(
+        mss2_file=a.mss2, rrc_mss2_files=rrc_mss2,
         slices=a.slices, sections=a.ibc_sections or None,
         fold_cols=a.fold_cols, stt_sections=a.stt_sections,
         threshold=a.ibc_threshold, stt_threshold=a.stt_threshold,
         stt_max_delta_y=a.stt_maxdeltay, out_stitched=a.out,
-        out_dir=a.out_dir, device=a.device,
+        out_stitched_mss=a.out_mss, out_dir=a.out_dir, device=a.device,
     )
+    if a.stream:
+        from .models.scene_stream import run_scene_streamed
+
+        run_scene_streamed(
+            a.pan1, a.pan2, a.mss, a.rrc_pan1, a.rrc_pan2, rrc_mss,
+            section_rows=a.stream_section_lines, **kw,
+        )
+    else:
+        from .models.scene import run_scene
+
+        run_scene(a.pan1, a.pan2, a.mss, a.rrc_pan1, a.rrc_pan2, rrc_mss,
+                  **kw)
     return 0
 
 

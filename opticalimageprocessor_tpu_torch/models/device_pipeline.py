@@ -15,12 +15,21 @@ Per scene:
              stitch tail: RRC of both PANs, the prestitch translation of
              PAN2 and the seam concat (kernel (d))
 
+:class:`MssAlign` aligns CMOS2's MSS against the prestitched PAN2 the same
+way (RRC, registration, one kernel-(c) launch at row bound 6).  The
+registration is split into its sampling geometry (:func:`register_geometry`)
+and a core on gathered tiles (:func:`register_tiles`), so the streamed scene
+(``models/scene_stream``) uploads only the sampled rows and still gets the
+resident route's estimates bit for bit.
+
 The JAX package's TPU workarounds are not ported: cuFFT replaces the DFT
 done as matrix multiplies (``ops/fft_mxu``) and float64 the double-word
 float32 fit (``ops/ddf32``).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -81,6 +90,96 @@ def _section_tiles(strip, params, row0, rows, cols, slices):
     return t.movedim(-2, 0)
 
 
+@dataclass(frozen=True)
+class RegGeometry:
+    """Where registration samples a (lines, width) PAN strip: ``n_sections``
+    row blocks of ``corr_rows`` lines, ``sec_stride`` apart, each cut into
+    ``slices`` tiles of ``cols`` columns; the band tiles are ``brows`` x
+    ``bcols`` at the same place in band pixels."""
+
+    slices: int
+    n_sections: int
+    corr_rows: int
+    sec_stride: int
+    cols: int
+    bcols: int
+    brows: int
+
+    def row0(self, sec: int) -> int:
+        """First PAN line of section ``sec``'s row block."""
+        return sec * self.sec_stride
+
+
+def register_geometry(lines_pan: int, width: int, slices: int = 10,
+                      n_sections: int | None = None) -> RegGeometry:
+    """The sampling geometry of :func:`register_fast` on a (lines_pan,
+    width) PAN strip."""
+    corr_rows = min(lines_pan, CORRELATION_LINES)
+    corr_rows = max(64, corr_rows - corr_rows % 64)
+    if n_sections is None:
+        n_sections = max(1, min(5, lines_pan // CORRELATION_LINES))
+    cols = width // slices
+    if cols % MSS_BANDS:
+        raise ValueError(
+            f"slice width {cols} (= {width} // {slices}) is not a multiple "
+            f"of {MSS_BANDS}"
+        )
+    sec_stride = (
+        (lines_pan - corr_rows) // max(1, n_sections - 1)
+        if n_sections > 1 else 0
+    )
+    return RegGeometry(slices, n_sections, corr_rows, sec_stride, cols,
+                       cols // MSS_BANDS, corr_rows // MSS_BANDS)
+
+
+def section_tiles(geom: RegGeometry, pan_blk, band_blk,
+                  pan_params: RRCParams | None = None,
+                  mss_params: RRCParams | None = None):
+    """One section's tiles from its row blocks: ``pan_blk`` (>= corr_rows,
+    >= slices * cols) and ``band_blk`` (4, >= brows, >= slices * bcols)
+    uint16, starting at the section's first row, RRC'd when the params are
+    given.  Returns float32 (slices, corr_rows, cols) and (slices, 4,
+    brows, bcols)."""
+    return (
+        _section_tiles(pan_blk, pan_params, 0, geom.corr_rows, geom.cols,
+                       geom.slices),
+        _section_tiles(band_blk, mss_params, 0, geom.brows, geom.bcols,
+                       geom.slices),
+    )
+
+
+def register_tiles(geom: RegGeometry, pan_tiles, band_tiles,
+                   win: tuple[int, int] = (64, 64),
+                   threshold: float = IBCV_DEF_THRESHOLD):
+    """The core of :func:`register_fast` on already gathered tiles: lists
+    of every section's :func:`section_tiles`, in section order (float32
+    (slices, corr_rows, cols) and (slices, 4, brows, bcols) each).  The
+    lists are emptied as they are consumed, so the tiles' memory is freed
+    before kernel (b) runs.  One batched rfft2 of all PAN tiles, one fft2
+    of all band tiles and one kernel-(b) launch, then the thresholded fit;
+    returns ``(coeffs, n_valid)`` as :func:`register_fast`.  Callers that
+    gather the same tiles in the same order get bit-identical estimates."""
+    pad = (geom.corr_rows, geom.cols)
+    win = phasecorr.clamp_win(win, pad)
+    fpan = phasecorr.rfft2_padded(torch.cat(pan_tiles), pad)
+    pan_tiles.clear()
+    fband = phasecorr.band_full_spectrum_small(torch.cat(band_tiles))
+    band_tiles.clear()
+    dx, dy, rs = windowed_crosspower_fused_tiles(
+        fpan, fband, pad, geom.brows, win[0], win[1]
+    )
+    del fpan, fband
+    cx = (
+        torch.arange(geom.slices, device=dx.device) * geom.cols
+        + geom.cols // 2
+    ).to(torch.float32).repeat(geom.n_sections)
+    w = (rs.T >= threshold).to(torch.float32)             # (4, T)
+    n_valid = w.sum(dim=1).to(torch.int32)
+    coeff_x = _fit_poly(cx, dx.T, 1, w)
+    coeff_y = _fit_poly(cx, dy.T, 2, w)
+    return [(coeff_x[b], coeff_y[b]) for b in range(MSS_BANDS)], n_valid
+
+
 def register_fast(
     pan: torch.Tensor,
     mss: torch.Tensor,
@@ -101,55 +200,18 @@ def register_fast(
     float32 fitted over samples with response >= ``threshold``, and the
     (4,) valid counts (check with :func:`check_registration_valid`).
 
-    All n_sections x slices tiles go through one batched rfft2, one batched
-    fft2 of the band tiles and one kernel-(b) launch, in (section, slice)
-    tile order.
+    The geometry is :func:`register_geometry`; all n_sections x slices
+    tiles go through :func:`register_tiles`.
     """
-    lines_pan, width = pan.shape
-    corr_rows = min(lines_pan, CORRELATION_LINES)
-    corr_rows = max(64, corr_rows - corr_rows % 64)
-    if n_sections is None:
-        n_sections = max(1, min(5, lines_pan // CORRELATION_LINES))
-    cols = width // slices
-    if cols % MSS_BANDS:
-        raise ValueError(
-            f"slice width {cols} (= {width} // {slices}) is not a multiple "
-            f"of {MSS_BANDS}"
-        )
-    bcols = cols // MSS_BANDS
-    brows = corr_rows // MSS_BANDS
-    pad = (corr_rows, cols)
-    win = phasecorr.clamp_win(win, pad)
-    sec_stride = (
-        (lines_pan - corr_rows) // max(1, n_sections - 1)
-        if n_sections > 1 else 0
-    )
+    geom = register_geometry(pan.shape[0], pan.shape[1], slices, n_sections)
     pan_tiles, band_tiles = [], []
-    for sec in range(n_sections):
-        row0 = sec * sec_stride
-        pan_tiles.append(
-            _section_tiles(pan, pan_params, row0, corr_rows, cols, slices)
-        )
-        band_tiles.append(
-            _section_tiles(
-                mss, mss_params, row0 // MSS_BANDS, brows, bcols, slices
-            )
-        )
-    fpan = phasecorr.rfft2_padded(torch.cat(pan_tiles), pad)
-    del pan_tiles
-    fband = phasecorr.band_full_spectrum_small(torch.cat(band_tiles))
-    dx, dy, rs = windowed_crosspower_fused_tiles(
-        fpan, fband, pad, brows, win[0], win[1]
-    )
-    del fpan, fband
-    cx = (
-        torch.arange(slices, device=pan.device) * cols + cols // 2
-    ).to(torch.float32).repeat(n_sections)
-    w = (rs.T >= threshold).to(torch.float32)             # (4, T)
-    n_valid = w.sum(dim=1).to(torch.int32)
-    coeff_x = _fit_poly(cx, dx.T, 1, w)
-    coeff_y = _fit_poly(cx, dy.T, 2, w)
-    return [(coeff_x[b], coeff_y[b]) for b in range(MSS_BANDS)], n_valid
+    for sec in range(geom.n_sections):
+        row0 = geom.row0(sec)
+        p, b = section_tiles(geom, pan[row0:], mss[:, row0 // MSS_BANDS:],
+                             pan_params, mss_params)
+        pan_tiles.append(p)
+        band_tiles.append(b)
+    return register_tiles(geom, pan_tiles, band_tiles, win, threshold)
 
 
 def check_registration_valid(n_valid) -> None:
@@ -314,6 +376,14 @@ class ScenePipeline(nn.Module):
         self.col_halo = col_halo
         self.prestt_row_bound = prestt_row_bound
         self.return_prestt = return_prestt
+        self.slices = slices
+        self.n_sections = n_sections
+        self.threshold = threshold
+        # stt_estimate_fast's settings after the strips and overlap_cols
+        self.stt_kw = dict(
+            sections=stt_sections, line_per_section=stt_lines,
+            threshold=stt_threshold, max_delta_y=stt_max_delta_y,
+        )
         self._estimate = make_scene_estimate(
             slices=slices, n_sections=n_sections, stt_sections=stt_sections,
             stt_lines=stt_lines, overlap_cols=overlap_cols,
@@ -365,6 +435,70 @@ class ScenePipeline(nn.Module):
         outs = self.transform(pan1, pan2, mss, cx, cy, raw_dx, raw_dy)
         dxs, dys = self.clamp_stt(raw_dx, raw_dy)
         return (*outs, n_valid, n_stt, (cx, cy, dxs, dys, raw_dx, raw_dy))
+
+
+class MssAlign(nn.Module):
+    """CMOS2's MSS aligned against the prestitched PAN2 (the second half of
+    the reference's sample-task workflow, which registers against
+    ``*.RRC.PRESTT.RAW``): RRC of the 4 bands (kernel (a)), registration
+    against the already-corrected PAN, and the 4 alignment resamples into
+    the interleaved raster (one kernel-(c) launch).  The MSS2 RRC
+    parameters are its buffers.
+
+    ``row_bound`` is 6, wider than the CMOS1 pipeline's 3: MSS2's fitted
+    vertical offset holds the band misregistration plus the band-scale
+    residue of the prestitch translation.  Kernel (c) takes it (rb <= 6),
+    so no row bound here reaches the staged route."""
+
+    def __init__(
+        self,
+        mss_params: RRCParams,
+        slices: int = 10,
+        n_sections: int | None = None,
+        threshold: float = IBCV_DEF_THRESHOLD,
+        row_bound: int = 6,
+        col_block: int = 128,
+        col_halo: int = 16,
+    ):
+        super().__init__()
+        k, b = mss_params
+        self.register_buffer("mss_k", torch.as_tensor(k, dtype=torch.float64))
+        self.register_buffer("mss_b", torch.as_tensor(b, dtype=torch.float64))
+        self.slices = slices
+        self.n_sections = n_sections
+        self.threshold = threshold
+        self.row_bound = row_bound
+        self.col_block = col_block
+        self.col_halo = col_halo
+
+    def remap(self, mss_c, cx, cy):
+        """The alignment resample of RRC'd (4, rows, W/4) bands: -> (rows,
+        W/4, 4) uint16."""
+        return remap_bands_interleaved(
+            mss_c, cx, cy, row_bound=self.row_bound,
+            col_block=self.col_block, col_halo=self.col_halo,
+        )
+
+    def transform(self, mss, cx, cy):
+        """RRC then :meth:`remap` of RAW (4, rows, W/4) bands."""
+        return self.remap(rrc_apply(mss, self.mss_k, self.mss_b), cx, cy)
+
+    def forward(self, pan_c, mss):
+        """``pan_c`` (L, W) corrected PAN, ``mss`` (4, L/4, W/4) RAW bands
+        -> (aligned (L/4, W/4, 4), n_valid (4,), (cx (4, 2), cy (4, 3)))."""
+        mss_c = rrc_apply(mss, self.mss_k, self.mss_b)
+        coeffs, n_valid = register_fast(
+            pan_c, mss_c, self.slices, self.n_sections,
+            threshold=self.threshold,
+        )
+        cx = torch.stack([c[0] for c in coeffs])
+        cy = torch.stack([c[1] for c in coeffs])
+        return self.remap(mss_c, cx, cy), n_valid, (cx, cy)
+
+
+def make_mss_align(mss_params, **cfg) -> MssAlign:
+    """The CMOS2 MSS align step as one :class:`MssAlign`."""
+    return MssAlign(mss_params, **cfg)
 
 
 def make_device_pipeline(pan1_params, pan2_params, mss_params, **cfg):

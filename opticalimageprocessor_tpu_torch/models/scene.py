@@ -4,7 +4,12 @@ Counterpart of ``opticalimageprocessor_tpu/models/scene.py``: loads the
 PAN1/PAN2/MSS RAW strips and the RRC CSVs, runs
 :class:`~.device_pipeline.ScenePipeline` (estimate, then transform) on one
 device, reports the reference's validity failures with the same messages,
-and writes the CMOS1 ALIGNED.TIFF and the stitched PAN (RAW or TIFF).
+and writes the CMOS1 ALIGNED.TIFF and the stitched PAN (RAW or TIFF).  With
+``mss2_file`` it runs the reference's whole ``DOC/sample-task.sh``
+workflow: CMOS2's MSS aligns against the prestitched PAN2 while that is
+still on the device (:class:`~.device_pipeline.MssAlign`), and the two
+aligned rasters stitch into one MSS TIFF.  ``models/scene_stream`` runs the
+same scene in bounded-memory sections.
 
 RAW/TIFF/CSV host IO and logging come from the port's own host modules
 (``constants``, ``formats``, ``io``, ``utils.logging``).
@@ -35,6 +40,7 @@ from .device_pipeline import (
     ScenePipeline,
     check_registration_valid,
     check_stt_valid,
+    make_mss_align,
 )
 
 _WRITE_ROWS = 4096   # host rows per device->host copy when writing
@@ -47,6 +53,42 @@ def load_rrc(path: str, columns: int) -> tuple[np.ndarray, np.ndarray]:
         return np.ones(columns), np.zeros(columns)
     kb = load_rrc_params(path, columns)
     return kb[:, 0].copy(), kb[:, 1].copy()
+
+
+def load_band_rrc(paths, band_px: int) -> tuple[np.ndarray, np.ndarray]:
+    """float64 ``(k, b)`` (4, band_px) of the 4 MSS bands' RRC CSVs (None:
+    the identity)."""
+    kb = [load_rrc(f, band_px) for f in paths or ("",) * MSS_BANDS]
+    return np.stack([k for k, _ in kb]), np.stack([b for _, b in kb])
+
+
+def is_tiff(path: str) -> bool:
+    return os.path.splitext(path)[1].lower() in (".tiff", ".tif")
+
+
+def check_tiff_output(path: str) -> None:
+    """The stitched MSS is multi-band: TIFF only (stitch_tiff parity);
+    checked before any device work."""
+    if path and not is_tiff(path):
+        raise ValueError("Output file should be a tiff image")
+
+
+def default_stitched_path(out_dir, width: int) -> str:
+    return os.path.join(
+        out_dir or os.getcwd(),
+        f"stitched_{width}n{BYTES_PER_PIXEL * 8}b{TIFF_FILE_EXT}",
+    )
+
+
+def default_stitched_mss_path(out_dir) -> str:
+    return os.path.join(out_dir or os.getcwd(), f"stitched-MSS{TIFF_FILE_EXT}")
+
+
+def mss_fold_half(fold_cols: int) -> int:
+    """Fold columns each aligned MSS raster loses at the seam: the MSS
+    folds PAN's ``fold_cols / 4`` (sample-task.sh FOLDCOL_MSS), half a
+    side."""
+    return max(1, fold_cols // MSS_BANDS // 2)
 
 
 def log_band_coeffs(cx, cy, n_valid) -> None:
@@ -103,6 +145,25 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def scene_pipeline(rrc_pan1, rrc_pan2, rrc_mss_files, pixels_per_line,
+                   slices, sections, fold_cols, stt_sections, threshold,
+                   stt_threshold, stt_max_delta_y, return_prestt):
+    """The scene's :class:`ScenePipeline` from the CLI's settings and RRC
+    CSVs (on the CPU; move it with ``.to``)."""
+    return ScenePipeline(
+        load_rrc(rrc_pan1, pixels_per_line),
+        load_rrc(rrc_pan2, pixels_per_line),
+        load_band_rrc(rrc_mss_files, pixels_per_line // MSS_BANDS),
+        slices=slices, n_sections=sections, fold=fold_cols // 2,
+        stt_sections=stt_sections,
+        # the stt windows span the physical CMOS overlap, which is what
+        # the stitch folds away (stitcher.h: stitch-overlap == fold cols)
+        overlap_cols=fold_cols,
+        threshold=threshold, stt_threshold=stt_threshold,
+        stt_max_delta_y=stt_max_delta_y, return_prestt=return_prestt,
+    )
+
+
 def run_scene(
     pan1_file: str,
     pan2_file: str,
@@ -110,6 +171,8 @@ def run_scene(
     rrc_pan1: str = "",
     rrc_pan2: str = "",
     rrc_mss_files: tuple[str, str, str, str] | None = None,
+    mss2_file: str = "",
+    rrc_mss2_files: tuple[str, str, str, str] | None = None,
     slices: int = 10,
     sections: int | None = None,
     fold_cols: int = 200,
@@ -118,13 +181,22 @@ def run_scene(
     stt_threshold: float = IBCV_DEF_THRESHOLD,
     stt_max_delta_y: float = 0.0,
     out_stitched: str = "",
+    out_stitched_mss: str = "",
     out_dir: str | None = None,
     pixels_per_line: int = PIXELS_PER_LINE,
     bgr_tiff_order: bool = True,
     device: str | torch.device = "cuda",
 ):
     """Run the scene pipeline on one device; returns a dict of output
-    paths (``aligned``, ``stitched``)."""
+    paths (``aligned``, ``stitched``; with ``mss2_file`` also ``aligned2``
+    and ``stitched_mss``).
+
+    With ``mss2_file`` CMOS2's MSS registers and aligns against the
+    prestitched PAN2 (the sample task's step 3.2 uses ``S1_PAN2 =
+    *.RRC.PRESTT.RAW``), and the two ALIGNED rasters stitch into one wide
+    MSS TIFF with ``fold_cols / 4`` fold columns."""
+    if mss2_file:
+        check_tiff_output(out_stitched_mss)
     dev = resolve_device(device)
     # the kx/ky contractions are float32 matmuls, as the JAX package runs
     # them at Precision.HIGHEST: never TF32
@@ -138,25 +210,16 @@ def run_scene(
     raw_io.check_pan_mss_sizes(p1, ms)
     olog("Scene: PAN %d lines, MSS %d lines.", p1.lines, ms.lines)
 
-    mss_kb = [load_rrc(f, band_px) for f in rrc_mss_files or ("",) * 4]
-    pipe = ScenePipeline(
-        load_rrc(rrc_pan1, pixels_per_line),
-        load_rrc(rrc_pan2, pixels_per_line),
-        (np.stack([k for k, _ in mss_kb]), np.stack([b for _, b in mss_kb])),
-        slices=slices, n_sections=sections, fold=fold_cols // 2,
-        stt_sections=stt_sections,
-        # the stt windows span the physical CMOS overlap, which is what
-        # the stitch folds away (stitcher.h: stitch-overlap == fold cols)
-        overlap_cols=fold_cols,
-        threshold=threshold, stt_threshold=stt_threshold,
-        stt_max_delta_y=stt_max_delta_y,
+    pipe = scene_pipeline(
+        rrc_pan1, rrc_pan2, rrc_mss_files, pixels_per_line, slices,
+        sections, fold_cols, stt_sections, threshold, stt_threshold,
+        stt_max_delta_y, return_prestt=bool(mss2_file),
     ).to(dev)
 
     with stage("scene_load", p1.nbytes * 2 + ms.nbytes):
         pan1 = torch.from_numpy(np.array(p1._mm)).to(dev)
         pan2 = torch.from_numpy(np.array(p2._mm)).to(dev)
-        view = ms._mm.reshape(ms.lines, MSS_BANDS, band_px).transpose(1, 0, 2)
-        mss = torch.from_numpy(np.ascontiguousarray(view)).to(dev)
+        mss = load_bands(ms, dev)
 
     with stage("scene_estimate", p1.nbytes + ms.nbytes):
         cx, cy, n_valid, raw_dx, raw_dy, n_stt = pipe.estimate(
@@ -172,7 +235,7 @@ def run_scene(
         n_valid, n_stt,
     )
     with stage("scene_transform", p1.nbytes * 2 + ms.nbytes):
-        aligned, stitched = pipe.transform(
+        aligned, stitched, *prestt = pipe.transform(
             pan1, pan2, mss, cx, cy, raw_dx, raw_dy
         )
         if dev.type == "cuda":
@@ -184,25 +247,13 @@ def run_scene(
         mss_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
     )
     with stage("scene_write_aligned", aligned.numel() * 2):
-        writer = tiff_io.TiffStripWriter(
-            aligned_path, band_px, ms.lines, samples=MSS_BANDS
-        )
-        for blk in _host_rows(aligned):
-            writer.write_rows(blk[:, :, order])
-        writer.close()
+        write_aligned_tiff(aligned_path, aligned, order)
     olog("Aligned MSS written to %s", aligned_path)
 
     st_w = int(stitched.shape[1])
-    if not out_stitched:
-        out_stitched = os.path.join(
-            out_dir or os.getcwd(),
-            f"stitched_{st_w}n{BYTES_PER_PIXEL * 8}b{TIFF_FILE_EXT}",
-        )
-    out_is_tiff = os.path.splitext(out_stitched)[1].lower() in (
-        ".tiff", ".tif",
-    )
+    out_stitched = out_stitched or default_stitched_path(out_dir, st_w)
     with stage("scene_write_stitched", stitched.numel() * 2):
-        if out_is_tiff:
+        if is_tiff(out_stitched):
             writer = tiff_io.TiffStripWriter(
                 out_stitched, st_w, p1.lines, samples=1
             )
@@ -214,4 +265,65 @@ def run_scene(
                 writer.write_lines(blk)
         writer.close()
     olog("Stitched PAN written to %s", out_stitched)
-    return {"aligned": aligned_path, "stitched": out_stitched}
+    outs = {"aligned": aligned_path, "stitched": out_stitched}
+    if not mss2_file:
+        return outs
+    del stitched
+
+    # ---- CMOS2 MSS: align against the prestitched PAN2, then stitch the
+    # two aligned rasters (sample-task.sh steps 3.2 + 4)
+    ms2 = raw_io.RawStrip(mss2_file, pixels_per_line)
+    raw_io.check_pan_mss_sizes(p2, ms2)
+    align = make_mss_align(
+        load_band_rrc(rrc_mss2_files, band_px), slices=slices,
+        n_sections=sections, threshold=threshold,
+    ).to(dev)
+    with stage("scene_load_mss2", ms2.nbytes):
+        mss2 = load_bands(ms2, dev)
+    with stage("scene_align_mss2", ms2.nbytes):
+        aligned2, n_valid2, (cx2, cy2) = align(prestt[0], mss2)
+        n_valid2 = n_valid2.cpu().numpy()
+    del mss2, prestt
+    check_registration_valid(n_valid2)
+    log_band_coeffs(cx2.cpu().numpy(), cy2.cpu().numpy(), n_valid2)
+
+    aligned2_path = build_output_file_path(
+        mss2_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
+    )
+    with stage("scene_write_aligned2", aligned2.numel() * 2):
+        write_aligned_tiff(aligned2_path, aligned2, order)
+    olog("Aligned MSS (CMOS2) written to %s", aligned2_path)
+
+    foldm_half = mss_fold_half(fold_cols)
+    half = band_px - foldm_half
+    out_stitched_mss = out_stitched_mss or default_stitched_mss_path(out_dir)
+    with stage("scene_write_stitched_mss", aligned.numel() * 4):
+        writer = tiff_io.TiffStripWriter(
+            out_stitched_mss, 2 * half, ms.lines, samples=MSS_BANDS
+        )
+        for b1, b2 in zip(_host_rows(aligned), _host_rows(aligned2)):
+            writer.write_rows(np.concatenate(
+                [b1[:, :half, order], b2[:, foldm_half:, order]], axis=1
+            ))
+        writer.close()
+    olog("Stitched MSS written to %s", out_stitched_mss)
+    outs.update({"aligned2": aligned2_path, "stitched_mss": out_stitched_mss})
+    return outs
+
+
+def load_bands(strip: raw_io.RawStrip, dev) -> torch.Tensor:
+    """A RAW MSS strip (each line 4 contiguous band segments) as (4, lines,
+    W/4) uint16 on ``dev``."""
+    band_px = strip.pixels_per_line // MSS_BANDS
+    view = strip._mm.reshape(strip.lines, MSS_BANDS, band_px).transpose(1, 0, 2)
+    return torch.from_numpy(np.ascontiguousarray(view)).to(dev)
+
+
+def write_aligned_tiff(path: str, aligned: torch.Tensor, order) -> None:
+    """Write a device (rows, W/4, 4) aligned raster as a 4-sample TIFF,
+    the channels in ``order``."""
+    rows, band_px, _ = aligned.shape
+    writer = tiff_io.TiffStripWriter(path, band_px, rows, samples=MSS_BANDS)
+    for blk in _host_rows(aligned):
+        writer.write_rows(blk[:, :, order])
+    writer.close()

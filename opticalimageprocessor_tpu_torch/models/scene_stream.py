@@ -1,0 +1,405 @@
+"""Streamed whole-scene pipeline: the resident scene without its memory
+bound, single device.
+
+Counterpart of ``opticalimageprocessor_tpu/models/scene_stream.py``.
+``models/scene.run_scene`` holds the whole scene on the device (~5x the PAN
+strip's bytes); this module runs the same math with device memory bounded
+by one section, whatever the strip length.  It follows the reference's own
+data flow (preproc.h:245-259, stitcher.h:151-156): the parameter estimates
+read only sampled windows, and every whole-strip stage (RRC, the alignment
+and prestitch resamples, the seam concat) is line-local up to a few halo
+rows.
+
+Phase 1, :func:`estimate_streamed`: upload the registration's sampled row
+blocks (at most 5 x 16000 PAN lines and their band rows) and run the
+resident registration's core on the same tiles in the same order
+(:func:`~.device_pipeline.register_tiles`), then the stt estimate on PAN1's
+right and PAN2's left ``overlap_cols`` columns: the estimates are the
+resident route's, bit for bit.
+
+Phase 2, :func:`transform_streamed`: sections of ``section_rows`` PAN
+lines, each with halo rows, go through
+:meth:`~.device_pipeline.ScenePipeline.transform` (kernel (a) on the bands,
+one kernel-(c) and one kernel-(d) launch) and drain in line order into the
+writers; the copies run off the compute stream (``io/streaming``).
+
+The halos are clipped at the strip ends instead of zero-filled and masked:
+kernels (c) and (d), and their plain versions, read 0 past the edges of
+their input after the RRC, so a window that a strip end clips sees the
+resident route's border rule, and an interior window reads true neighbour
+rows for every tap its row bound keeps (halo = row bound + 2).  No output
+row depends on its absolute index, so the section rows equal the resident
+rows.
+
+With ``mss2_file`` the prestitched PAN2 is written as ``.PRESTT.RAW``;
+CMOS2's MSS is estimated against that file and streamed at row bound 6,
+and the two ALIGNED.TIFFs are stream-stitched into the MSS TIFF.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import (
+    IBCV_DEF_THRESHOLD,
+    IBPA_STEM_EXT,
+    MSS_BANDS,
+    PIXELS_PER_LINE,
+    PRESTT_STEM_EXT,
+    TIFF_FILE_EXT,
+)
+from ..formats.naming import build_output_file_path
+from ..io import raw as raw_io
+from ..io import tiff as tiff_io
+from ..io.raw import RawStrip
+from ..io.streaming import HostDeviceCopies, window
+from ..utils.logging import olog, stage
+from .device_pipeline import (
+    MssAlign,
+    ScenePipeline,
+    check_registration_valid,
+    check_stt_valid,
+    make_mss_align,
+    register_geometry,
+    register_tiles,
+    section_tiles,
+    stt_estimate_fast,
+)
+from .scene import (
+    check_tiff_output,
+    default_stitched_mss_path,
+    default_stitched_path,
+    is_tiff,
+    load_band_rrc,
+    log_band_coeffs,
+    log_scene_params,
+    mss_fold_half,
+    resolve_device,
+    scene_pipeline,
+)
+
+_STITCH_ROWS = 2048   # MSS rows a step of the stream-stitch
+
+
+def band_rows(strip: RawStrip, a: int, b: int) -> np.ndarray:
+    """Band rows ``[a, b)`` of a RAW MSS strip as a (4, b - a, W/4) view."""
+    band_px = strip.pixels_per_line // MSS_BANDS
+    return strip._mm[a:b].reshape(b - a, MSS_BANDS, band_px).transpose(1, 0, 2)
+
+
+def _upload(a: np.ndarray, dev) -> torch.Tensor:
+    """A host copy of ``a`` (a memory-map view is read-only) on ``dev``."""
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def register_streamed(pan: RawStrip, mss: RawStrip, slices, n_sections,
+                      pan_params, mss_params, threshold, device):
+    """:func:`~.device_pipeline.register_fast` on RAW strip files: only
+    the sampled row blocks go to ``device``.  -> (coeffs, n_valid)."""
+    geom = register_geometry(pan.lines, pan.pixels_per_line, slices,
+                             n_sections)
+    pan_tiles, band_tiles = [], []
+    for sec in range(geom.n_sections):
+        row0 = geom.row0(sec)
+        br0 = row0 // MSS_BANDS
+        p, b = section_tiles(
+            geom, _upload(pan._mm[row0:row0 + geom.corr_rows], device),
+            _upload(band_rows(mss, br0, br0 + geom.brows), device),
+            pan_params, mss_params,
+        )
+        pan_tiles.append(p)
+        band_tiles.append(b)
+    return register_tiles(geom, pan_tiles, band_tiles, threshold=threshold)
+
+
+def _stack_coeffs(coeffs):
+    return (torch.stack([c[0] for c in coeffs]),
+            torch.stack([c[1] for c in coeffs]))
+
+
+def estimate_streamed(pipe: ScenePipeline, p1: RawStrip, p2: RawStrip,
+                      ms: RawStrip, device):
+    """Phase 1 on the strip files: -> ``(cx (4, 2), cy (4, 3), n_valid (4,),
+    raw_dx, raw_dy, n_stt)``, bit-identical to ``pipe.estimate`` on the
+    resident strips."""
+    coeffs, n_valid = register_streamed(
+        p1, ms, pipe.slices, pipe.n_sections, (pipe.pan1_k, pipe.pan1_b),
+        (pipe.mss_k, pipe.mss_b), pipe.threshold, device,
+    )
+    ov = pipe.overlap_cols
+    # the stt sampling reads PAN1's right and PAN2's left overlap columns
+    # only: the same windows of narrow strips (column 0 = the overlap's)
+    raw_dx, raw_dy, _resp, n_stt = stt_estimate_fast(
+        _upload(p1._mm[:, p1.pixels_per_line - ov:], device),
+        _upload(p2._mm[:, :ov], device), overlap_cols=ov, **pipe.stt_kw,
+    )
+    return (*_stack_coeffs(coeffs), n_valid, raw_dx, raw_dy, n_stt)
+
+
+def estimate_mss2_streamed(align: MssAlign, pan_c: RawStrip,
+                           ms2: RawStrip, device):
+    """MSS2's registration against the corrected PAN2 file (the PRESTT
+    strip): -> ``(cx, cy, n_valid)``, bit-identical to :class:`MssAlign`'s
+    on the resident rasters (the band tiles are RRC'd as they are cut)."""
+    coeffs, n_valid = register_streamed(
+        pan_c, ms2, align.slices, align.n_sections, None,
+        (align.mss_k, align.mss_b), align.threshold, device,
+    )
+    return (*_stack_coeffs(coeffs), n_valid)
+
+
+def _check_section_rows(section_rows: int) -> None:
+    if section_rows <= 0 or section_rows % MSS_BANDS:
+        raise ValueError("section_rows must be a multiple of 4")
+
+
+def _stream(copies, n, load, step, write) -> None:
+    """The streamed loop: section k's work and drain are enqueued, then
+    section k + 1's host read and upload are issued and section k - 1's
+    drain is written, so the card works on k while the host reads k + 1
+    and writes k - 1."""
+    nxt = load(0)
+    pending = None
+    for k in range(n):
+        cur, nxt = nxt, None
+        drain = copies.download(step(*cur))
+        if k + 1 < n:
+            nxt = load(k + 1)
+        if pending is not None:
+            write(*pending.wait())
+        pending = drain
+    write(*pending.wait())
+
+
+def _write_tiff_rows(writer, block: np.ndarray) -> None:
+    """TiffStripWriter keeps a view of a block's rows past its last whole
+    strip; a drained block's memory is reused two sections on, so hand it
+    a copy then."""
+    if block.shape[0] % writer.rows_per_strip:
+        block = block.copy()
+    writer.write_rows(block)
+
+
+def transform_streamed(pipe: ScenePipeline, p1: RawStrip, p2: RawStrip,
+                       ms: RawStrip, cx, cy, raw_dx, raw_dy, write_aligned,
+                       write_stitched, write_prestt=None,
+                       section_rows: int = 4096, device="cuda") -> int:
+    """Phase 2: ``pipe.transform`` section by section.  Each section is
+    ``section_rows`` PAN lines (the last one may be shorter) with
+    ``prestt_row_bound + 2`` halo rows of PAN1 and PAN2 and ``row_bound +
+    2`` of the bands, clipped at the strip ends; its payload rows go, in
+    line order, to ``write_aligned`` ((rows/4, W/4, 4)), ``write_stitched``
+    and, where ``pipe.return_prestt``, ``write_prestt`` (host arrays valid
+    during the call).  Returns the number of sections."""
+    _check_section_rows(section_rows)
+    dev = torch.device(device)
+    # host floats once, not a device readback a section
+    raw_dx, raw_dy = float(raw_dx), float(raw_dy)
+    halo_p = pipe.prestt_row_bound + 2
+    halo_b = pipe.row_bound + 2
+    copies = HostDeviceCopies(dev)
+    n = -(-p1.lines // section_rows)
+
+    def load(k):
+        off = k * section_rows
+        lines = min(section_rows, p1.lines - off)
+        a, b, top, _ = window(p1.lines, off, lines, halo_p)
+        ab, bb, top_b, _ = window(ms.lines, off // MSS_BANDS,
+                                  lines // MSS_BANDS, halo_b)
+        up = copies.upload([p1._mm[a:b], p2._mm[a:b], band_rows(ms, ab, bb)])
+        return up, lines, top, top_b
+
+    def step(up, lines, top, top_b):
+        pan1, pan2, bands = up.get()
+        aligned, *pans = pipe.transform(pan1, pan2, bands, cx, cy, raw_dx,
+                                        raw_dy)
+        lb = lines // MSS_BANDS
+        return [aligned[top_b:top_b + lb],
+                *(t[top:top + lines] for t in pans)]
+
+    def write(aligned, stitched, prestt=None):
+        write_aligned(aligned)
+        write_stitched(stitched)
+        if prestt is not None:
+            write_prestt(prestt)
+
+    _stream(copies, n, load, step, write)
+    return n
+
+
+def transform_mss2_streamed(align: MssAlign, ms2: RawStrip, cx, cy,
+                            write_aligned, section_rows: int = 4096,
+                            device="cuda") -> int:
+    """MSS2's alignment in sections of ``section_rows / 4`` band rows with
+    ``row_bound + 2`` halo rows (row bound 6: halo 8), each through
+    :meth:`MssAlign.transform` (kernel (a), one kernel-(c) launch).
+    Returns the number of sections."""
+    _check_section_rows(section_rows)
+    dev = torch.device(device)
+    halo = align.row_bound + 2
+    rows = section_rows // MSS_BANDS
+    copies = HostDeviceCopies(dev)
+    n = -(-ms2.lines // rows)
+
+    def load(k):
+        off = k * rows
+        lines = min(rows, ms2.lines - off)
+        a, b, top, _ = window(ms2.lines, off, lines, halo)
+        return copies.upload([band_rows(ms2, a, b)]), lines, top
+
+    def step(up, lines, top):
+        return [align.transform(up.get()[0], cx, cy)[top:top + lines]]
+
+    _stream(copies, n, load, step, write_aligned)
+    return n
+
+
+def run_scene_streamed(
+    pan1_file: str,
+    pan2_file: str,
+    mss_file: str,
+    rrc_pan1: str = "",
+    rrc_pan2: str = "",
+    rrc_mss_files: tuple[str, str, str, str] | None = None,
+    mss2_file: str = "",
+    rrc_mss2_files: tuple[str, str, str, str] | None = None,
+    slices: int = 10,
+    sections: int | None = None,
+    fold_cols: int = 200,
+    stt_sections: int = 10,
+    threshold: float = IBCV_DEF_THRESHOLD,
+    stt_threshold: float = IBCV_DEF_THRESHOLD,
+    stt_max_delta_y: float = 0.0,
+    out_stitched: str = "",
+    out_stitched_mss: str = "",
+    out_dir: str | None = None,
+    pixels_per_line: int = PIXELS_PER_LINE,
+    bgr_tiff_order: bool = True,
+    section_rows: int = 4096,
+    device: str | torch.device = "cuda",
+):
+    """The streamed scene: the outputs of ``run_scene`` with the same
+    arguments, byte for byte, with device memory bounded by a few
+    ``section_rows``-line sections.  Returns the output paths (with
+    ``mss2_file`` also ``prestt``, the prestitched PAN2 RAW)."""
+    if mss2_file:
+        check_tiff_output(out_stitched_mss)
+    _check_section_rows(section_rows)
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    band_px = pixels_per_line // MSS_BANDS
+    p1 = raw_io.RawStrip(pan1_file, pixels_per_line)
+    p2 = raw_io.RawStrip(pan2_file, pixels_per_line)
+    ms = raw_io.RawStrip(mss_file, pixels_per_line)
+    if p1.nbytes != p2.nbytes:
+        raise ValueError("PAN1 size doesn't match PAN2 size")
+    raw_io.check_pan_mss_sizes(p1, ms)
+    olog("Streamed scene: PAN %d lines, MSS %d lines, %d-line sections.",
+         p1.lines, ms.lines, section_rows)
+
+    pipe = scene_pipeline(
+        rrc_pan1, rrc_pan2, rrc_mss_files, pixels_per_line, slices,
+        sections, fold_cols, stt_sections, threshold, stt_threshold,
+        stt_max_delta_y, return_prestt=bool(mss2_file),
+    ).to(dev)
+    with stage("stream_estimate", 0):
+        cx, cy, n_valid, raw_dx, raw_dy, n_stt = estimate_streamed(
+            pipe, p1, p2, ms, dev)
+        n_valid = n_valid.cpu().numpy()
+        n_stt = int(n_stt)
+    check_registration_valid(n_valid)
+    check_stt_valid(n_stt)
+    dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
+    log_scene_params(
+        (cx.cpu().numpy(), cy.cpu().numpy(), dxs, dys, raw_dx, raw_dy),
+        n_valid, n_stt,
+    )
+
+    order = [2, 1, 0, 3] if bgr_tiff_order else [0, 1, 2, 3]
+    aligned_path = build_output_file_path(
+        mss_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
+    )
+    st_w = 2 * (pixels_per_line - pipe.fold)
+    out_stitched = out_stitched or default_stitched_path(out_dir, st_w)
+    aligned_w = tiff_io.TiffStripWriter(
+        aligned_path, band_px, ms.lines, samples=MSS_BANDS
+    )
+    if is_tiff(out_stitched):
+        stitched_w = tiff_io.TiffStripWriter(out_stitched, st_w, p1.lines,
+                                             samples=1)
+        write_stitched = lambda blk: _write_tiff_rows(stitched_w, blk)  # noqa: E731
+    else:
+        stitched_w = raw_io.RawStripWriter(out_stitched, st_w)
+        write_stitched = stitched_w.write_lines
+    prestt_path, prestt_w = "", None
+    if mss2_file:
+        prestt_path = build_output_file_path(
+            pan2_file, PRESTT_STEM_EXT, out_dir=out_dir
+        )
+        prestt_w = raw_io.RawStripWriter(prestt_path, pixels_per_line)
+    with stage("stream_transform", p1.nbytes * 2 + ms.nbytes):
+        transform_streamed(
+            pipe, p1, p2, ms, cx, cy, raw_dx, raw_dy,
+            lambda blk: aligned_w.write_rows(blk[:, :, order]),
+            write_stitched, prestt_w.write_lines if prestt_w else None,
+            section_rows, dev,
+        )
+    for w in (aligned_w, stitched_w, prestt_w):
+        if w is not None:
+            w.close()
+    olog("Aligned MSS written to %s", aligned_path)
+    olog("Stitched PAN written to %s", out_stitched)
+    outs = {"aligned": aligned_path, "stitched": out_stitched}
+    if not mss2_file:
+        return outs
+    outs["prestt"] = prestt_path
+
+    # ---- CMOS2 MSS against the prestitched PAN2 (sample-task steps 3.2+4)
+    ms2 = raw_io.RawStrip(mss2_file, pixels_per_line)
+    raw_io.check_pan_mss_sizes(p2, ms2)
+    align = make_mss_align(
+        load_band_rrc(rrc_mss2_files, band_px), slices=slices,
+        n_sections=sections, threshold=threshold,
+    ).to(dev)
+    with stage("stream_estimate_mss2", 0):
+        cx2, cy2, n_valid2 = estimate_mss2_streamed(
+            align, raw_io.RawStrip(prestt_path, pixels_per_line), ms2, dev)
+        n_valid2 = n_valid2.cpu().numpy()
+    check_registration_valid(n_valid2)
+    log_band_coeffs(cx2.cpu().numpy(), cy2.cpu().numpy(), n_valid2)
+
+    aligned2_path = build_output_file_path(
+        mss2_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
+    )
+    aligned2_w = tiff_io.TiffStripWriter(
+        aligned2_path, band_px, ms2.lines, samples=MSS_BANDS
+    )
+    with stage("stream_transform_mss2", ms2.nbytes):
+        transform_mss2_streamed(
+            align, ms2, cx2, cy2,
+            lambda blk: aligned2_w.write_rows(blk[:, :, order]),
+            section_rows, dev,
+        )
+    aligned2_w.close()
+    olog("Aligned MSS (CMOS2) written to %s", aligned2_path)
+
+    # stream-stitch the aligned pair from the two TIFFs
+    foldm_half = mss_fold_half(fold_cols)
+    half = band_px - foldm_half
+    out_stitched_mss = out_stitched_mss or default_stitched_mss_path(out_dir)
+    wmss = tiff_io.TiffStripWriter(
+        out_stitched_mss, 2 * half, ms.lines, samples=MSS_BANDS
+    )
+    with stage("stream_stitch_mss", ms.lines * 2 * half * MSS_BANDS * 2):
+        for b1, b2 in zip(
+            tiff_io.iter_tiff_rows(aligned_path, _STITCH_ROWS),
+            tiff_io.iter_tiff_rows(aligned2_path, _STITCH_ROWS),
+        ):
+            wmss.write_rows(
+                np.concatenate([b1[:, :half], b2[:, foldm_half:]], axis=1)
+            )
+    wmss.close()
+    olog("Stitched MSS written to %s", out_stitched_mss)
+    outs.update({"aligned2": aligned2_path, "stitched_mss": out_stitched_mss})
+    return outs

@@ -33,6 +33,7 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.models.device_pipeline",
     "opticalimageprocessor_tpu_torch.models.preprocessor",
     "opticalimageprocessor_tpu_torch.models.scene",
+    "opticalimageprocessor_tpu_torch.models.scene_stream",
     "opticalimageprocessor_tpu_torch.models.stitcher",
     "opticalimageprocessor_tpu_torch.ops",
     "opticalimageprocessor_tpu_torch.ops.phasecorr",

@@ -1,5 +1,6 @@
 """Port scene (models/scene.run_scene, cli scene) end to end against the
-JAX package's run_scene on the same RAW files and RRC CSVs."""
+JAX package's run_scene on the same RAW files and RRC CSVs, with CMOS2's
+MSS (``mss2_file``: the whole sample-task workflow)."""
 
 import functools
 import os
@@ -17,6 +18,7 @@ from opticalimageprocessor_tpu.ops import resample as jres
 from opticalimageprocessor_tpu_torch import cli
 from opticalimageprocessor_tpu_torch.models import scene
 from opticalimageprocessor_tpu_torch.models.device_pipeline import (
+    MssAlign,
     ScenePipeline,
 )
 
@@ -26,10 +28,18 @@ PIX, LINES, FOLD = 3072, 2048, 200
 KW = dict(slices=8, stt_sections=4, fold_cols=FOLD, pixels_per_line=PIX)
 
 
+def mss2_rolls(width):
+    """Band b of the synthetic MSS2 is the noise rolled by these (rows,
+    columns): its own roll ((b + 1) mod 2, 1 - b) plus the columns that
+    put it under the prestitched PAN2 ((FOLD - W) / 4 band px)."""
+    return [((b + 1) % 2, (FOLD - width) // 4 + 1 - b) for b in range(4)]
+
+
 def _write_scene(d, rng, lines, width, dy):
     """bench.py:217-259's synthesis, small: PAN1 = x4 upsample of noise,
     PAN2 = PAN1 rolled by (dy, 200 - 3 - W), band b = the noise rolled by
-    (b mod 2, b - 1); random RRC CSVs."""
+    (b mod 2, b - 1); random RRC CSVs.  CMOS2's MSS: the noise rolled by
+    :func:`mss2_rolls`, with its own random RRC CSVs (drawn last)."""
     scene_lr = rng.integers(2000, 42000, (lines // 4, width // 4)).astype(
         np.float32)
     up = np.clip(np.rint(np.asarray(jres.upsample4_f32(scene_lr))), 0, 65535)
@@ -48,23 +58,42 @@ def _write_scene(d, rng, lines, width, dy):
         files[f"rrc_{name}"] = os.path.join(d, f"{name}.csv")
         save_rrc_params(files[f"rrc_{name}"], kb)
         params[name] = (kb[:, 0], kb[:, 1])
-    return files, params, (pan1, pan2, mss)
+    mss2 = np.stack([np.roll(scene_lr, r, (0, 1)) for r in mss2_rolls(width)]
+                    ).astype(np.uint16)
+    files["mss2"] = os.path.join(d, "mss2.RAW")
+    mss2.transpose(1, 0, 2).tofile(files["mss2"])
+    for b in range(1, 5):
+        kb = np.stack([0.98 + 0.04 * rng.random(width // 4),
+                       rng.normal(0, 20, width // 4)], 1)
+        files[f"rrc_m2b{b}"] = os.path.join(d, f"m2b{b}.csv")
+        save_rrc_params(files[f"rrc_m2b{b}"], kb)
+        params[f"m2b{b}"] = (kb[:, 0], kb[:, 1])
+    return files, params, (pan1, pan2, mss, mss2)
 
 
 def _run(module, files, out_dir, captured):
     rrc_mss = tuple(files[f"rrc_msb{b}"] for b in range(1, 5))
+    rrc_mss2 = tuple(files[f"rrc_m2b{b}"] for b in range(1, 5))
 
     def capture(params, n_valid, n_stt):
         captured.update(params=params, n_valid=np.asarray(n_valid),
                         n_stt=int(n_stt))
 
+    def capture2(cx, cy, n_valid):
+        # log_scene_params is patched: this is the MSS2 fit's call
+        captured.update(params2=(np.asarray(cx), np.asarray(cy)),
+                        n_valid2=np.asarray(n_valid))
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(module, "log_scene_params", capture)
+        mp.setattr(module, "log_band_coeffs", capture2)
         extra = {"device": "cpu"} if module is scene else {}
         return module.run_scene(
             files["pan1"], files["pan2"], files["mss"], files["rrc_pan1"],
-            files["rrc_pan2"], rrc_mss, out_dir=out_dir,
-            out_stitched=os.path.join(out_dir, "STITCHED.RAW"), **KW, **extra,
+            files["rrc_pan2"], rrc_mss, mss2_file=files["mss2"],
+            rrc_mss2_files=rrc_mss2, out_dir=out_dir,
+            out_stitched=os.path.join(out_dir, "STITCHED.RAW"),
+            out_stitched_mss=os.path.join(out_dir, "SMSS.TIFF"), **KW, **extra,
         )
 
 
@@ -91,7 +120,8 @@ def runs(tmp_path_factory):
                        lambda *a: fused.append(1) or real(*a))
             paths = _run(module, files, od, cap)
         assert bool(fused) == (name == "jax")
-        cap["aligned"] = tiff_io.read_tiff(paths["aligned"])[..., [2, 1, 0, 3]]
+        for key in ("aligned", "aligned2", "stitched_mss"):
+            cap[key] = tiff_io.read_tiff(paths[key])[..., [2, 1, 0, 3]]
         cap["stitched"] = np.fromfile(paths["stitched"], "<u2").reshape(
             LINES, -1)
         out[name] = cap
@@ -127,7 +157,7 @@ def test_scene_pinned_transform_matches_jax(runs):
     """JAX's estimates pinned into the port's transform: aligned within
     1 DN on <= 1% of pixels; stitched left half byte-exact, right half
     within 1 DN on <= 1%."""
-    out, params, (pan1, pan2, mss) = runs
+    out, params, (pan1, pan2, mss, _) = runs
     j = out["jax"]
     cx, cy, _, _, raw_dx, raw_dy = j["params"]
     pipe = ScenePipeline(
@@ -169,6 +199,68 @@ def test_scene_outputs_match_jax(runs):
     assert d.mean() < 0.05, d.mean()
 
 
+def test_scene_mss2_estimates_match_jax(runs):
+    """MSS2's fits against the prestitched PAN2: the same valid counts as
+    JAX's, and every fitted curve within 1e-3 px."""
+    out, _, _ = runs
+    j, p = out["jax"], out["port"]
+    np.testing.assert_array_equal(p["n_valid2"], j["n_valid2"])
+    for k in (0, 1):
+        for b in range(4):
+            d = np.abs(_curve(p["params2"][k][b]) - _curve(j["params2"][k][b]))
+            assert d.max() <= 1e-3, (k, b, d.max())
+
+
+def test_scene_mss2_recovers_the_band_rolls(runs):
+    """The MSS2 fits find each band's roll against the prestitched PAN2
+    (4 PAN px a band px); the rows carry the prestitch's residue of dy = 2
+    read as ~1.6 (half a band row at most)."""
+    out, _, _ = runs
+    cx, cy = out["port"]["params2"]
+    for b, (dr, dc) in enumerate(mss2_rolls(PIX)):
+        own = dc - (FOLD - PIX) // 4
+        assert abs(cx[b][0] - 4 * own) < 0.1, (b, cx[b])
+        assert abs(cy[b][0] - 4 * dr) < 0.5, (b, cy[b])
+
+
+def test_scene_mss2_pinned_transform_matches_jax(runs):
+    """JAX's MSS2 fits pinned into MssAlign's remap: aligned2 within 1 DN
+    on <= 1% of pixels."""
+    out, params, (_, _, _, mss2) = runs
+    cx, cy = out["jax"]["params2"]
+    align = MssAlign(tuple(np.stack([params[f"m2b{b}"][i] for b in
+                                     range(1, 5)]) for i in (0, 1)),
+                     slices=8)
+    got = align.transform(torch.from_numpy(mss2),
+                          torch.from_numpy(np.array(cx, np.float32)),
+                          torch.from_numpy(np.array(cy, np.float32)))
+    _check_envelope(got.numpy(), out["jax"]["aligned2"], "aligned2")
+
+
+def test_scene_mss2_outputs_match_jax(runs):
+    """Unpinned: aligned2 and the stitched MSS against JAX's, mean < 0.05
+    DN (the estimate-dependent gate of test_scene_outputs_match_jax)."""
+    out, _, _ = runs
+    j, p = out["jax"], out["port"]
+    half = PIX // 4 - FOLD // 8
+    for key, shape in (("aligned2", (LINES // 4, PIX // 4, 4)),
+                       ("stitched_mss", (LINES // 4, 2 * half, 4))):
+        assert p[key].shape == j[key].shape == shape, key
+        d = np.abs(p[key].astype(np.int32) - j[key].astype(np.int32))
+        assert d.mean() < 0.05, (key, d.mean())
+
+
+def test_scene_stitched_mss_is_the_aligned_concat(runs):
+    """The port's stitched MSS is its own two aligned rasters cut at the
+    MSS fold (fold_cols / 8 band px a side), byte for byte."""
+    p = runs[0]["port"]
+    f = FOLD // 8
+    np.testing.assert_array_equal(
+        p["stitched_mss"],
+        np.concatenate([p["aligned"][:, :PIX // 4 - f],
+                        p["aligned2"][:, f:]], axis=1))
+
+
 @pytest.fixture(scope="module")
 def wide_scene(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("cli"))
@@ -196,34 +288,71 @@ def test_cli_scene_runs_at_camera_width(wide_scene):
     assert aligned.shape == (256, 3072, 4)
 
 
+def test_cli_scene_stream_mss2_runs_at_camera_width(wide_scene):
+    """``scene --stream --mss2`` at the camera width: every output, with
+    its shape, and the prestitched PAN2 RAW."""
+    d, files = wide_scene
+    out = os.path.join(d, "stream")
+    os.mkdir(out)
+    argv = _argv(files, out, "--stream", "--stream-section-lines", "384",
+                 "--mss2", files["mss2"], "--out-mss",
+                 os.path.join(out, "SMSS.TIFF"))
+    for b in range(1, 5):
+        argv += [f"--rrc-m2b{b}", files[f"rrc_m2b{b}"]]
+    assert cli.main(argv) == 0
+    st = np.fromfile(os.path.join(out, "OUT.RAW"), "<u2")
+    assert st.size == 1024 * 2 * (12288 - FOLD // 2)
+    for name in ("mss.ALIGNED.TIFF", "mss2.ALIGNED.TIFF"):
+        assert tiff_io.read_tiff(os.path.join(out, name)).shape == (
+            256, 3072, 4)
+    assert tiff_io.read_tiff(os.path.join(out, "SMSS.TIFF")).shape == (
+        256, 2 * (3072 - FOLD // 8), 4)
+    assert os.path.getsize(os.path.join(out, "pan2.PRESTT.RAW")) == (
+        1024 * 12288 * 2)
+
+
 @pytest.mark.parametrize("case", [
     "fold_too_small", "missing_pan1", "mss2", "mesh", "stream", "profile",
     "rrc_m2b_needs_mss2", "out_mss_needs_mss2", "missing_mss2",
+    "mesh_stream",
 ])
-def test_cli_scene_usage_errors(wide_scene, case, capsys):
+def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
     """Usage errors exit 254 before any work, with the JAX CLI's checks and
-    messages; the JAX flags the port does not run yet are refused by
-    name."""
+    messages; the JAX flags the port does not run yet (``--mesh``,
+    ``--profile``) are refused by name.  The runtime checks of ``--mss2``
+    and ``--stream`` (a non-TIFF stitched MSS, section lines that are no
+    multiple of 4) exit 2 before any device work."""
     d, files = wide_scene
     nope = os.path.join(d, "nope.RAW")
-    extra, said = {
-        "fold_too_small": (["-c", "1"], "fold column value too small"),
-        "missing_pan1": ([], f"--pan1: File does not exist: {nope}"),
-        "mss2": (["--mss2", files["mss"]], "--mss2: the CMOS2 MSS"),
-        "mesh": (["--mesh", "2"], "--mesh: the multi-device route"),
-        "stream": (["--stream"], "--stream: the streamed scene route"),
-        "profile": (["--profile", d], "--profile: the device profile"),
-        "rrc_m2b_needs_mss2": (["--rrc-m2b1", files["rrc_msb1"]],
+    extra, rc, said = {
+        "fold_too_small": (["-c", "1"], 254, "fold column value too small"),
+        "missing_pan1": ([], 254, f"--pan1: File does not exist: {nope}"),
+        "mss2": (["--mss2", files["mss2"], "--out-mss",
+                  os.path.join(d, "X.RAW")], 2,
+                 "Output file should be a tiff image"),
+        "mesh": (["--mesh", "2"], 254, "--mesh: the multi-device route"),
+        "stream": (["--stream", "--stream-section-lines", "130"], 2,
+                   "section_rows must be a multiple of 4"),
+        "profile": (["--profile", d], 254, "--profile: the device profile"),
+        "rrc_m2b_needs_mss2": (["--rrc-m2b1", files["rrc_msb1"]], 254,
                                "--rrc-m2b* needs --mss2"),
-        "out_mss_needs_mss2": (["--out-mss", os.path.join(d, "M.TIFF")],
+        "out_mss_needs_mss2": (["--out-mss", os.path.join(d, "M.TIFF")], 254,
                                "--out-mss needs --mss2"),
-        "missing_mss2": (["--mss2", nope],
+        "missing_mss2": (["--mss2", nope], 254,
                          f"--mss2: File does not exist: {nope}"),
+        "mesh_stream": (["--mesh", "2", "--stream"], 254,
+                        "--mesh: the multi-device route"),
     }[case]
     f = dict(files, pan1=nope) if case == "missing_pan1" else files
     capsys.readouterr()
-    assert cli.main(_argv(f, d, *extra)) == 254
-    assert f"USAGE ERROR: {said}" in capsys.readouterr().out
+    caplog.clear()
+    assert cli.main(_argv(f, d, *extra)) == rc
+    if rc == 254:
+        assert f"USAGE ERROR: {said}" in capsys.readouterr().out
+    else:
+        assert f"{said}." in caplog.text
+        # failed before the strips were opened
+        assert "cene: PAN" not in caplog.text
 
 
 def test_cli_scene_runtime_error_is_rc2(wide_scene):
