@@ -53,10 +53,23 @@ Phases (any failure exits non-zero and prints no result line):
    section; each route's estimate and transform called directly for its
    peak device memory (the streamed transform below a quarter of the
    resident one), and one streamed transform under torch.profiler (copy
-   and kernel ms, their union).
+   and kernel ms, their union);
+7. the parity route: ``remap_section_u16`` (plain PyTorch, no kernel of
+   its own) at 0 DN against a numpy copy of the ``cv::remap`` oracle in
+   both coordinate modes on a 2048 x 3072 band section and a 1024 x 12288
+   constant-shift section, its ms a 30000 x 12288 section and a 20000 x
+   3072 band section beside its bound and its peak device memory; then
+   ``prestitch`` and the default action through ``cli.main`` without
+   ``--fast`` in each ``--coord-mode`` and with ``--fast``, on 40960-line
+   RAW files (two 30000-row prestitch sections with the rolling-buffer
+   bottom cut; two 5200-line alignment sections): SectionaryRemap's line
+   count, each parity output at 0 DN against the oracle on row windows at
+   every section edge and the bottom cut, > 1 DN from the ``--fast`` one
+   on < 1% of each section's first 1024 rows (continuous mode), the modes
+   different, kernel (a) launched.
 
 The last two lines of standard output are the kernels' JSON record
-(launches over phases 3, 5 and 6, error, kernel, plain and bound ms at
+(launches over phases 3, 5, 6 and 7, error, kernel, plain and bound ms at
 phase 2's shapes, plus the scene shapes' ms and bound for (b) and (d), the
 streamed section's for (d), the file commands' and MSS2's shapes' ms and
 bound for (c), and each of (e)'s shapes' ms and bound) and
@@ -1292,6 +1305,502 @@ def phase_stream(dev, power, tmp: Path, lines: int = 34816,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the parity route (prestitch and the default align without --fast)
+# ---------------------------------------------------------------------------
+
+def _cubic_weights_np(x):
+    """OpenCV ``interpolateCubic`` (A = -0.75) in float32, reference
+    expression order (copied from
+    ``opticalimageprocessor_tpu/ops/cv_exact.py::interpolate_cubic_f32``)."""
+    x = np.asarray(x, dtype=np.float32)
+    A = np.float32(-0.75)
+    f1, f5, f8, f4 = (np.float32(v) for v in (1.0, 5.0, 8.0, 4.0))
+    f2, f3 = np.float32(2.0), np.float32(3.0)
+    xp1 = x + f1
+    c0 = ((A * xp1 - f5 * A) * xp1 + f8 * A) * xp1 - f4 * A
+    c1 = ((A + f2) * x - (A + f3)) * x * x + f1
+    omx = f1 - x
+    c2 = ((A + f2) * omx - (A + f3)) * omx * omx + f1
+    c3 = f1 - c0 - c1 - c2
+    return np.stack([c0, c1, c2, c3], axis=-1)
+
+
+def remap_oracle(src, mapx, mapy, quantized):
+    """``cv::remap(src16U, mapx32F, mapy32F, INTER_CUBIC, BORDER_CONSTANT,
+    0)`` in numpy: quantized (OpenCV <= 4.x) or continuous (5.x)
+    coordinates, ``W[a, b] = f32(wy[a] * wx[b])``, each tap row summed
+    left to right and the rows in order, rint half to even and clamp; a
+    pixel whose whole support is outside is 0.  Copied from
+    ``opticalimageprocessor_tpu/ops/cv_exact.py:103-206``
+    (``remap_cubic_u16_exact`` with its map conversions and
+    ``_remap_interior_order``)."""
+    src = np.asarray(src, dtype=np.uint16)
+    h, w = src.shape
+    mapx = np.asarray(mapx, np.float32)
+    mapy = np.asarray(mapy, np.float32)
+    if quantized:
+        sx = np.rint(mapx * np.float32(32)).astype(np.int32)
+        sy = np.rint(mapy * np.float32(32)).astype(np.int32)
+        ix = np.clip(sx >> 5, -32768, 32767).astype(np.int32)
+        iy = np.clip(sy >> 5, -32768, 32767).astype(np.int32)
+        tab = _cubic_weights_np(np.arange(32, dtype=np.float32)
+                                * np.float32(1.0 / 32))
+        wx, wy = tab[sx & 31], tab[sy & 31]
+    else:
+        ix = np.floor(mapx).astype(np.int32)
+        iy = np.floor(mapy).astype(np.int32)
+        wx = _cubic_weights_np((mapx - ix).astype(np.float32))
+        wy = _cubic_weights_np((mapy - iy).astype(np.float32))
+    sx0, sy0 = ix - 1, iy - 1
+    padded = np.zeros((h + 8, w + 8), dtype=np.float32)
+    padded[4:4 + h, 4:4 + w] = src.astype(np.float32)
+    py = np.clip(sy0 + 4, 0, h + 4)
+    px = np.clip(sx0 + 4, 0, w + 4)
+    outside = (sx0 >= w) | (sx0 + 4 <= 0) | (sy0 >= h) | (sy0 + 4 <= 0)
+    acc = np.zeros(px.shape, dtype=np.float32)
+    for a in range(4):
+        ya = py + a
+        wa = wy[..., a]
+        t = padded[ya, px] * (wa * wx[..., 0])
+        t = t + padded[ya, px + 1] * (wa * wx[..., 1])
+        t = t + padded[ya, px + 2] * (wa * wx[..., 2])
+        t = t + padded[ya, px + 3] * (wa * wx[..., 3])
+        acc = acc + t
+    out = np.clip(np.rint(acc).astype(np.int32), 0, 65535).astype(np.uint16)
+    out[outside] = 0
+    return out
+
+
+def poly_cols(cx, cy, width):
+    """The reference's alignment maps (preproc.h:443-450) in double: ->
+    (mapx of each column, G(x)) with mapx = (cX1*xx + cX0 + xx)/4, G =
+    (cY2*xx^2 + cY1*xx + cY0)/4, xx = 4x."""
+    xx = np.arange(width, dtype=np.float64) * 4.0
+    return ((float(cx[1]) * xx + float(cx[0]) + xx) / 4.0,
+            (float(cy[2]) * xx * xx + float(cy[1]) * xx + float(cy[0]))
+            / 4.0)
+
+
+def shift_cols(dx, dy, width):
+    """The prestitch maps (stitcher.h:93-99) in double: mapx = x + dx,
+    G = dy."""
+    return (np.arange(width, dtype=np.float64) + float(dx),
+            np.full(width, float(dy)))
+
+
+def maps_for_rows(mapx_cols, g, y0, y1):
+    """The float32 maps of a section's rows [y0, y1): mapx per column,
+    mapy = float32(y + G(x)) with y the row's index in the section."""
+    return (np.tile(mapx_cols.astype(np.float32), (y1 - y0, 1)),
+            (np.arange(y0, y1, dtype=np.float64)[:, None] + g).astype(
+                np.float32))
+
+
+def oracle_rows(rows, origin, l0, l1, mapx_cols, g, quantized):
+    """Rows [l0, l1) of the oracle's remap of a section, given only its
+    rows [origin, origin + len(rows)): each mapy less ``origin`` (exact in
+    float32) addresses the slice.  The slice must reach the section's edge
+    or beyond the taps of [l0, l1) on both sides."""
+    mapx, mapy = maps_for_rows(mapx_cols, g, origin, origin + len(rows))
+    out = remap_oracle(rows, mapx, mapy - np.float32(origin), quantized)
+    return out[l0 - origin:l1 - origin]
+
+
+# a fitted-size band polynomial (~1 band px of shift, slope and curvature
+# of real fits) and the constant-shift gate's translation
+PARITY_POLY = ((4.3, -2.1e-5), (3.6, 6.5e-5, -3.0e-9))
+PARITY_SHIFT = (-3.3, 3.4)
+
+
+def parity_function_gate(dev, rng, res):
+    """``remap_section_u16`` on the card at 0 DN against the numpy oracle
+    in both coordinate modes, on a 2048 x 3072 band section and a 1024 x
+    12288 constant-shift section; then its ms a section (CUDA events) at
+    30000 x 12288 and at a 20000 x 3072 band section beside its bound
+    (uint16 in and out at the memory rate), and the peak device memory of
+    one 30000 x 12288 section."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    def plan(kind, width, quantized):
+        if kind == "band":
+            return resample.plan_for_band_alignment(*PARITY_POLY, width,
+                                                    quantized)
+        return resample.plan_for_constant_shift(*PARITY_SHIFT, width,
+                                                quantized)
+
+    for kind, rows, width in (("band", 2048, BW), ("shift", 1024, W)):
+        src = rng.integers(0, 65536, (rows, width), dtype=np.uint16)
+        cols = (poly_cols(*PARITY_POLY, width) if kind == "band"
+                else shift_cols(*PARITY_SHIFT, width))
+        dsrc = torch.from_numpy(src).to(dev)
+        for quantized in (False, True):
+            mode = "quantized" if quantized else "continuous"
+            got = resample.remap_section_u16(
+                dsrc, plan(kind, width, quantized)).cpu().numpy()
+            want = remap_oracle(src, *maps_for_rows(*cols, 0, rows),
+                                quantized)
+            dmax = int(np.abs(got.astype(np.int32)
+                              - want.astype(np.int32)).max())
+            say(f"[parity] remap_section_u16 {kind} ({rows}, {width}) "
+                f"{mode}: max {dmax} DN against the oracle")
+            check(dmax == 0, f"remap_section_u16 {kind} {mode} vs oracle: "
+                             f"{dmax} DN")
+            res[f"oracle_{kind}_{mode}_max_dn"] = dmax
+        del dsrc
+
+    for tag, rows, width, kind in (("section", 30000, W, "shift"),
+                                   ("band_section", 20000, BW, "band")):
+        sec = torch.from_numpy(
+            rng.integers(0, 65536, (rows, width), dtype=np.uint16)).to(dev)
+        p = plan(kind, width, False)
+        if tag == "section":
+            # the section itself (0.74 GB) is on the card before the call
+            _, res["section_peak_gb"] = _peak_gb(
+                lambda: resample.remap_section_u16(sec, p))
+        res[f"{tag}_ms"] = time_ms(lambda: resample.remap_section_u16(sec, p),
+                                   2)
+        res[f"{tag}_bound_ms"] = bound(4 * sec.numel())["bound_ms"]
+        res[f"{tag}_shape"] = f"({rows}, {width}) u16, {kind}"
+        del sec
+        torch.cuda.empty_cache()
+    say("[parity] remap_section_u16: " + json.dumps(
+        {k: v for k, v in res.items() if not k.startswith("oracle")}))
+
+
+def sectionary_remap(lines, dy, section_rows=30000):
+    """SectionaryRemap's bookkeeping (imageop.h:230-275): -> (ucut, bcut,
+    [(offset, rows) of each section], its returned row offset)."""
+    ucut = 0 if dy >= 0 else int(-dy) + 1
+    bcut = int(dy) + 1 if dy >= 0 else 0
+    off, sections = 0, []
+    while True:
+        rows = min(section_rows, lines - off)
+        if rows <= ucut + bcut:
+            break
+        sections.append((off, rows))
+        off += rows - ucut - bcut
+    return ucut, bcut, sections, off
+
+
+def check_prestitch_oracle(path, raw, k, b, dx, dy, quantized, lines,
+                           win=64, halo=16, section_rows=30000):
+    """The PRESTT.RAW at 0 DN against the oracle on windows of ``win``
+    rows: the top and bottom of each section's kept rows (the seams
+    between them) and the bottom cut.  Where the strip has 2 or more
+    sections the bottom cut comes from the reference's rolling buffer,
+    whose rows past the final section's fresh read hold the previous
+    section's: its last ``2 * bcut + 8`` rows are rebuilt and remapped as
+    a section of their own (local y from 0, the JAX package's window,
+    models/stitcher.py:298-317).  The oracle reads RRC(``raw``) through the
+    numpy RRC.  -> (max DN, lines written, [(offset, rows)] of the
+    sections)."""
+    ucut, bcut, sections, offset = sectionary_remap(lines, dy, section_rows)
+    got = np.memmap(path, dtype="<u2", mode="r")
+    written = offset + ucut + bcut
+    check(got.size == written * W,
+          f"{path.name}: {got.size // W} lines, SectionaryRemap's {written}")
+    got = got.reshape(written, W)
+    cols = shift_cols(dx, dy, W)
+    worst = 0
+
+    def held(f0, want):
+        nonlocal worst
+        d = int(np.abs(got[f0:f0 + len(want)].astype(np.int32)
+                       - want.astype(np.int32)).max())
+        worst = max(worst, d)
+
+    for i, (o, rows) in enumerate(sections):
+        lo = 0 if i == 0 else ucut       # the section's kept local rows
+        hi = rows - bcut
+        for l0 in (lo, hi - win):
+            a, e = max(0, l0 - halo), min(rows, l0 + win + halo)
+            held(o + l0, oracle_rows(rrc_oracle(raw[o + a:o + e], k, b), a,
+                                     l0, l0 + win, *cols, quantized))
+    if bcut and len(sections) > 1:
+        (o_prev, _), (o_last, rows_last) = sections[-2:]
+        j = np.arange(max(0, section_rows - 2 * bcut - 8), section_rows)
+        src = np.where((j < rows_last)[:, None],
+                       raw[np.minimum(o_last + j, lines - 1)],
+                       raw[np.minimum(o_prev + j, lines - 1)])
+        n = len(j)
+        held(written - bcut, oracle_rows(rrc_oracle(src, k, b), 0, n - bcut,
+                                         n, *cols, quantized))
+    elif bcut:                   # one section: its fresh tail
+        o, rows = sections[0]
+        a = max(0, rows - bcut - halo)
+        held(written - bcut, oracle_rows(rrc_oracle(raw[o + a:o + rows], k,
+                                                    b), a, rows - bcut, rows,
+                                         *cols, quantized))
+    return worst, written, sections
+
+
+def check_align_oracle(img, raw_mss, kb, fits, sec_lines, overlap,
+                       quantized, win=64, halo=16, min_lines=1500):
+    """The ALIGNED.TIFF (channels [2, 1, 0, 3]) at 0 DN against the oracle
+    on windows of ``win`` rows at the top and bottom of each section's
+    kept rows, for every band: the oracle reads RRC(band) through the
+    numpy RRC, with the band's fitted polynomials ``fits``."""
+    lines = raw_mss.shape[0]
+    worst, out0, off = 0, 0, 0
+    while True:
+        n = min(lines - off, sec_lines)
+        if n < min_lines:
+            break
+        for l0 in (overlap, n - win):
+            a, e = max(0, l0 - halo), min(n, l0 + win + halo)
+            for band in range(4):
+                want = oracle_rows(
+                    rrc_oracle(raw_mss[off + a:off + e, band], *kb[band]), a,
+                    l0, l0 + win, *poly_cols(*fits[band], BW), quantized)
+                got = img[out0 + l0 - overlap:out0 + l0 - overlap + win, :,
+                          [2, 1, 0, 3].index(band)]
+                worst = max(worst, int(np.abs(got.astype(np.int32)
+                                              - want.astype(np.int32)).max()))
+        out0 += n - overlap
+        off += sec_lines - overlap
+    return worst
+
+
+def interior_diff(a, b, keep_rows, block=4096):
+    """|a - b| over the rows ``keep_rows`` selects, 8 edge columns left
+    out (the JAX package's fast-vs-parity test,
+    tests/test_pipeline_e2e.py:434-469): -> (max DN, share > 1 DN)."""
+    dmax, over, n = 0, 0, 0
+    for r in range(0, a.shape[0], block):
+        k = keep_rows[r:r + block]
+        d = np.abs(a[r:r + block, 8:-8].astype(np.int32)
+                   - b[r:r + block, 8:-8].astype(np.int32))[k]
+        if d.size:
+            dmax = max(dmax, int(d.max()))
+            over += int((d > 1).sum())
+            n += d.size
+    return dmax, over / n
+
+
+# float32(y + G) is within 2^-16 px of y + G for section rows y < 1024:
+# the rows where the JAX package's fast-vs-parity envelope is defined (its
+# test remaps 600 rows); at y ~ 30000 the map keeps 2^-9 px and the parity
+# route drifts from the fast route by up to ~30 DN on noise.  Of that
+# envelope only its share (> 1 DN on < 1% of pixels) is gated: at the
+# camera's 3072-px bands the fast route's own float32 mapx (xx up to 12288)
+# is 1.2e-4 px off, which moves rare pixels of band-resolution noise by up
+# to ~8 DN
+ENVELOPE_ROWS = 1024
+
+
+def row_mask(rows, spans, cut=()):
+    """The output rows in the ``spans`` [(first, end)], less ``cut``'s."""
+    keep = np.zeros(rows, bool)
+    for a, e in spans:
+        keep[a:e] = True
+    for a, e in cut:
+        keep[a:e] = False
+    return keep
+
+
+def _spy(module, name, calls):
+    """Record the positional arguments of every ``module.name`` call;
+    returns a function that restores the original."""
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def phase_parity(dev, power, tmp: Path, lines: int = 40960):
+    """The parity route on the card: the function gate, then through
+    ``cli.main`` on a 40960-line scene of RAW files (bench.py's synthesis,
+    PAN2 3 rows below PAN1): ``prestitch`` in each ``--coord-mode`` and
+    ``--fast`` (two 30000-row sections and the rolling-buffer bottom cut),
+    and the default action in each mode and ``--fast`` (10240 MSS lines in
+    two sections of 5200 overlapping by 100).  Each parity output: its
+    line count SectionaryRemap's, 0 DN against the oracle on windows at
+    every section's edges and the bottom cut, > 1 DN from the ``--fast``
+    output on < 1% of the first 1024 rows of each section (continuous
+    mode; see ENVELOPE_ROWS), and the two modes differ."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.io import tiff
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    rng = np.random.default_rng(SEED + 5)
+    res = {"lines": lines, "card": power}
+    parity_function_gate(dev, rng, res)
+
+    pan1, pan2, mss = synth_scene(torch, rng, lines, dev, dy=3)
+    files = {n: tmp / f"{n}.RAW" for n in ("CMOS1.PAN", "CMOS2.PAN",
+                                           "CMOS1.MSS")}
+    pan1.cpu().numpy().tofile(files["CMOS1.PAN"])
+    pan2.cpu().numpy().tofile(files["CMOS2.PAN"])
+    mss.cpu().numpy().transpose(1, 0, 2).tofile(files["CMOS1.MSS"])
+    del pan1, pan2, mss
+    torch.cuda.empty_cache()
+    kb, csv = {}, {}
+    for name, n in (("pan1", W), ("pan2", W),
+                    *((f"msb{b}", BW) for b in range(1, 5))):
+        kb[name] = rand_params(rng, n)
+        csv[name] = str(tmp / f"{name}.csv")
+        _write_csv(csv[name], *kb[name])
+
+    launches, plans = {}, []
+    modes = (("continuous", []), ("fast", ["--fast"]),
+             ("quantized", ["--coord-mode", "quantized"]))
+
+    def run(tag, argv):
+        plans.clear()
+        launches[tag], res[f"{tag}_wall_s"], text = run_cli(tag, argv,
+                                                            "parity")
+        n = launches[tag]
+        fast = "--fast" in argv
+        check(n["rrc"] > 0 and n["crosspower"] == 0 and n["stitch_tail"] == 0
+              and n["row_pass"] == 0 and (n["remap_band"] > 0) == fast,
+              f"{tag}: launches {n}")
+        check(bool(plans) != fast, f"{tag}: {len(plans)} parity plans")
+        return text
+
+    restore = [_spy(resample, "plan_for_constant_shift", plans),
+               _spy(resample, "plan_for_band_alignment", plans)]
+    try:
+        # 1. prestitch: continuous, --fast, quantized on the same pair
+        base = ["prestitch", "--pan1", str(files["CMOS1.PAN"]), "--pan2",
+                str(files["CMOS2.PAN"]), "--rrc1", csv["pan1"], "--rrc2",
+                csv["pan2"], "-s", "1", "-l", "16000", "--stitch-overlap",
+                str(FOLD_COLS), "--device", dev.type]
+        raw2 = np.memmap(files["CMOS2.PAN"], dtype="<u2",
+                         mode="r").reshape(lines, W)
+        prestt, shifts = {}, {}
+        for mode, extra in modes:
+            tag = f"prestitch_{mode}"
+            out = tmp / tag
+            out.mkdir()
+            run(tag, base + extra + ["--out-dir", str(out)])
+            for n in ("CMOS1.PAN", "CMOS2.PAN"):
+                (out / f"{n}.RRC.RAW").unlink()
+            prestt[mode] = out / "CMOS2.PAN.RRC.PRESTT.RAW"
+            if mode == "fast":
+                continue
+            (dx, dy, width, quantized), = plans
+            check(width == W and quantized == (mode == "quantized"),
+                  f"{tag}: plan {plans}")
+            shifts[mode] = (dx, dy)
+            worst, written, sections = check_prestitch_oracle(
+                prestt[mode], raw2, *kb["pan2"], dx, dy, quantized, lines)
+            say(f"[parity] {tag}: stt ({dx!r}, {dy!r}), {len(sections)} "
+                f"sections {sections}, {written} lines written; windows vs "
+                f"the oracle max {worst} DN")
+            check(worst == 0, f"{tag}: {worst} DN against the oracle")
+            check(len(sections) == 2 and int(dy) + 1 > 0,
+                  f"{tag}: want 2 sections and a bottom cut")
+            res[f"{tag}_oracle_max_dn"] = worst
+        check(len(set(shifts.values())) == 1,
+              f"prestitch: the stt differs between runs: {shifts}")
+        # (phase 5 holds the stt to 0.05 px; here it sets the cuts)
+        check(abs(dx + 3) < 0.1 and 3 <= dy < 3.1, f"stt ({dx}, {dy})")
+        pre = {m: np.memmap(p, dtype="<u2", mode="r").reshape(-1, W)
+               for m, p in prestt.items()}
+        check(pre["fast"].shape == pre["continuous"].shape,
+              f"prestitch --fast: {pre['fast'].shape[0]} lines")
+        # section rows [8, ENVELOPE_ROWS) of each section; every row 8 or
+        # more from the strip's ends, the seam and the bottom cut
+        keep = row_mask(written, [(o + 8, o + ENVELOPE_ROWS)
+                                  for o, _ in sections])
+        seam = sections[1][0]
+        away = row_mask(written, [(8, written - int(dy) - 1 - 8)],
+                        [(seam - 8, seam + 8)])
+        for mode in ("continuous", "quantized"):
+            d_env = interior_diff(pre[mode], pre["fast"], keep)
+            d_all = interior_diff(pre[mode], pre["fast"], away)
+            say(f"[parity] prestitch {mode} vs --fast: first "
+                f"{ENVELOPE_ROWS} rows of each section max {d_env[0]} DN, "
+                f"{d_env[1]:.5%} > 1 DN; every row away from the seams max "
+                f"{d_all[0]} DN, {d_all[1]:.5%} > 1 DN")
+            res[f"prestitch_{mode}_vs_fast"] = dict(envelope=d_env,
+                                                    away_from_seams=d_all)
+        d = res["prestitch_continuous_vs_fast"]["envelope"]
+        check(d[1] < 0.01,
+              "prestitch continuous vs --fast: > 1 DN on 1% or more")
+        check(not same_file(prestt["continuous"], prestt["quantized"]),
+              "prestitch: the two coordinate modes wrote the same PRESTT")
+        del pre, raw2
+        for p in prestt.values():
+            shutil.rmtree(p.parent)
+
+        # 2. the default action: continuous, --fast, quantized
+        sec_lines, overlap = 5200, 100
+        base = ["--pan", str(files["CMOS1.PAN"]), "--mss",
+                str(files["CMOS1.MSS"]), "--do-rrc4pan", "--rrc-pan",
+                csv["pan1"], "--slices", "10", "--ibc-sections", "1",
+                "--lines-section", str(sec_lines), "--overlap-lines",
+                str(overlap), "--device", dev.type]
+        for b in range(1, 5):
+            base += [f"--rrc-msb{b}", csv[f"msb{b}"]]
+        raw_mss = np.memmap(files["CMOS1.MSS"], dtype="<u2",
+                            mode="r").reshape(lines // 4, 4, BW)
+        band_kb = [kb[f"msb{b}"] for b in range(1, 5)]
+        aligned, fits = {}, {}
+        for mode, extra in modes:
+            tag = f"align_{mode}"
+            out = tmp / tag
+            out.mkdir()
+            run(tag, base + extra + ["--out-dir", str(out)])
+            aligned[mode] = tiff.read_tiff(
+                str(out / "CMOS1.MSS.ALIGNED.TIFF"))
+            shutil.rmtree(out)
+            if mode == "fast":
+                continue
+            check(len(plans) == 4 and all(
+                p[2] == BW and p[3] == (mode == "quantized") for p in plans),
+                f"{tag}: plans {len(plans)}")
+            fits[mode] = [(np.asarray(p[0]).tolist(),
+                           np.asarray(p[1]).tolist()) for p in plans]
+            worst = check_align_oracle(aligned[mode], raw_mss, band_kb,
+                                       fits[mode], sec_lines, overlap,
+                                       mode == "quantized")
+            say(f"[parity] {tag}: windows of both sections, 4 bands, vs the "
+                f"oracle max {worst} DN")
+            check(worst == 0, f"{tag}: {worst} DN against the oracle")
+            res[f"{tag}_oracle_max_dn"] = worst
+        check(fits["continuous"] == fits["quantized"],
+              "align: the fits differ between runs")
+        rows = lines // 4 - overlap
+        for m, a in aligned.items():
+            check(a.shape == (rows, BW, 4), f"align {m}: shape {a.shape}")
+        # section k's kept rows start at output row k * (sec_lines -
+        # overlap), its section row `overlap`
+        seam = sec_lines - overlap
+        keep = row_mask(rows, [(0, ENVELOPE_ROWS - overlap),
+                               (seam, seam + ENVELOPE_ROWS - overlap)])
+        away = row_mask(rows, [(8, rows - 8)], [(seam - 8, seam + 8)])
+        for mode in ("continuous", "quantized"):
+            d_env = interior_diff(aligned[mode], aligned["fast"], keep)
+            d_all = interior_diff(aligned[mode], aligned["fast"], away)
+            say(f"[parity] align {mode} vs --fast: section rows < "
+                f"{ENVELOPE_ROWS} max {d_env[0]} DN, {d_env[1]:.5%} > 1 DN; "
+                f"every row away from the seam max {d_all[0]} DN, "
+                f"{d_all[1]:.5%} > 1 DN")
+            res[f"align_{mode}_vs_fast"] = dict(envelope=d_env,
+                                                away_from_seams=d_all)
+        d = res["align_continuous_vs_fast"]["envelope"]
+        check(d[1] < 0.01, "align continuous vs --fast: > 1 DN on 1% or more")
+        check(not np.array_equal(aligned["continuous"], aligned["quantized"]),
+              "align: the two coordinate modes wrote the same ALIGNED.TIFF")
+        del aligned, raw_mss
+    finally:
+        for r in restore:
+            r()
+    res["launches"] = launches
+    say(f"[parity] {json.dumps(res)}")
+    return {k: sum(n[k] for n in launches.values())
+            for k in next(iter(launches.values()))}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the device time of one forward goes
 # ---------------------------------------------------------------------------
 
@@ -1459,10 +1968,15 @@ def main() -> int:
         stream_dir = Path(tmp, "stream")
         stream_dir.mkdir()
         stream_launches = phase_stream(dev, power, stream_dir)
+        shutil.rmtree(stream_dir)
+        torch.cuda.empty_cache()
+        parity_dir = Path(tmp, "parity")
+        parity_dir.mkdir()
+        parity_launches = phase_parity(dev, power, parity_dir)
     launches = {k: launches[k] + files_launches[k] + stream_launches[k]
-                for k in launches}
+                + parity_launches[k] for k in launches}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel was never launched in phases 3, 5 and 6: {launches}")
+          f"a kernel was never launched in phases 3, 5, 6 and 7: {launches}")
 
     replaces = {
         "rrc": ("opticalimageprocessor_tpu_torch/csrc/rrc.cu",

@@ -5,8 +5,9 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions):
 
 * the default action (inter-band registration + alignment) and
-  ``prestitch``, in fast mode: both require ``--fast`` (the parity route is
-  not ported yet), and refuse ``--mesh`` and ``--profile``;
+  ``prestitch``: the parity route (bit for bit ``cv::remap``, in either
+  ``--coord-mode``) or, with ``--fast``, the fast route; both refuse
+  ``--mesh`` and ``--profile``;
 * ``stitch`` (host concatenation of the CMOS halves);
 * ``scene`` (the whole scene on one device): takes every flag of the JAX
   CLI's ``scene`` and runs its checks; runs the resident route, or with
@@ -15,9 +16,9 @@ PyTorch versions):
 
 ``auxsep`` is not ported yet.  The file workflow (docs/sample-task.sh)::
 
-    python -m opticalimageprocessor_tpu_torch.cli prestitch --fast \
+    python -m opticalimageprocessor_tpu_torch.cli prestitch \
         --pan1 CMOS1.PAN.RAW --pan2 CMOS2.PAN.RAW --rrc1 r1 --rrc2 r2
-    python -m opticalimageprocessor_tpu_torch.cli --fast --pan P.RAW \
+    python -m opticalimageprocessor_tpu_torch.cli --pan P.RAW \
         --mss M.RAW --do-rrc4pan --rrc-pan rp --rrc-msb1 b1 ... --rrc-msb4 b4
     python -m opticalimageprocessor_tpu_torch.cli stitch \
         --image1 CMOS1.PAN.RAW --image2 CMOS2.PAN.RRC.PRESTT.RAW -c 200
@@ -66,10 +67,10 @@ def _print_stage_report() -> None:
 
 def _add_port_flags(p: argparse.ArgumentParser, what: str) -> None:
     """``--fast``, ``--mesh`` and ``--profile`` as the JAX CLI spells them
-    (the port refuses all but the fast route), and ``--device``."""
+    (the port refuses the last two), and ``--device``."""
     p.add_argument("--fast", action="store_true", default=False,
-                   help=f"fast-mode {what} (required: the parity route is "
-                        "not ported yet)")
+                   help=f"fast-mode {what} over the whole strip (within 1 "
+                        "DN of the default parity route's sections)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="multi-device route (not ported yet)")
     p.add_argument("--profile", default="", metavar="DIR",
@@ -91,13 +92,6 @@ def _refuse_flags(a, *flags: str) -> None:
         if getattr(a, flag[2:]):
             raise UsageError(f"{flag}: {_UNPORTED[flag]} is not ported to "
                              "the PyTorch package yet")
-
-
-def _refuse_unported(a) -> None:
-    _refuse_flags(a, "--mesh", "--profile")
-    if not a.fast:
-        raise UsageError("the parity route (without --fast) is not ported to "
-                         "the PyTorch package yet; pass --fast")
 
 
 def _build_default_parser() -> argparse.ArgumentParser:
@@ -147,8 +141,10 @@ def _build_default_parser() -> argparse.ArgumentParser:
                    help="output directory (default cwd)")
     p.add_argument("--coord-mode", choices=["continuous", "quantized"],
                    default="continuous",
-                   help="resample coordinate convention of the parity route "
-                        "(the fast route ignores it, as in the JAX package)")
+                   help="coordinate convention of the parity route's "
+                        "resample: OpenCV 5.x continuous, or OpenCV <= 4.x's "
+                        "1/32-px grid (the fast route ignores it, as in the "
+                        "JAX package)")
     _add_port_flags(p, "alignment resample")
     return p
 
@@ -171,12 +167,13 @@ def _default_action(a) -> int:
     _require_file(a.rrc_pan, "--rrc-pan")
     for i, f in enumerate(rrc_mss, 1):
         _require_file(f, f"--rrc-msb{i}")
-    _refuse_unported(a)
+    _refuse_flags(a, "--mesh", "--profile")
 
     from .models.preprocessor import PreProcessor
 
     pp = PreProcessor(a.pan, a.mss, a.rrc_pan, rrc_mss, out_dir=a.out_dir,
-                      fast=True, device=a.device)
+                      quantized_coords=a.coord_mode == "quantized",
+                      fast=a.fast, device=a.device)
     pp.load_and_rrc(do_rrc_pan=a.do_rrc4pan, do_rrc_mss=a.do_rrc4mss)
     if a.do_rrc4pan and a.write_rrcpan:
         pp.write_rrc_pan_tiff(a.line_offset)
@@ -214,8 +211,10 @@ def _prestitch(argv) -> int:
     p.add_argument("--out-dir", default=None)
     p.add_argument("--coord-mode", choices=["continuous", "quantized"],
                    default="continuous",
-                   help="resample coordinate convention of the parity route "
-                        "(the fast route ignores it, as in the JAX package)")
+                   help="coordinate convention of the parity route's "
+                        "resample: OpenCV 5.x continuous, or OpenCV <= 4.x's "
+                        "1/32-px grid (the fast route ignores it, as in the "
+                        "JAX package)")
     _add_port_flags(p, "constant-shift resample")
     a = p.parse_args(argv)
     if a.edge_cols < 0 or a.edge_cols > a.stitch_overlap // 2:
@@ -224,13 +223,14 @@ def _prestitch(argv) -> int:
     _require_file(a.pan2, "--pan2")
     _require_file(a.rrc1, "--rrc1")
     _require_file(a.rrc2, "--rrc2")
-    _refuse_unported(a)
+    _refuse_flags(a, "--mesh", "--profile")
 
     from .models.stitcher import Stitcher
 
     st = Stitcher(a.pan1, a.pan2, a.rrc1, a.rrc2, a.sections, a.section_lines,
-                  a.stitch_overlap, out_dir=a.out_dir, fast=True,
-                  device=a.device)
+                  a.stitch_overlap, out_dir=a.out_dir,
+                  quantized_coords=a.coord_mode == "quantized",
+                  fast=a.fast, device=a.device)
     st.calc_stt_parameters(a.stt_threshold, a.stt_maxdeltay, a.edge_cols)
     if not a.only_calculate:
         if a.do_rrc:

@@ -1,5 +1,4 @@
-"""Inter-band registration + alignment (the default command), fast route,
-in PyTorch.
+"""Inter-band registration + alignment (the default command) in PyTorch.
 
 Counterpart of ``opticalimageprocessor_tpu/models/preprocessor.py``
 (reference ``PreProcessor``, preproc.h:30-599), with the same stages:
@@ -12,12 +11,13 @@ Counterpart of ``opticalimageprocessor_tpu/models/preprocessor.py``
    upsample of the band tiles, full-surface ``cv::phaseCorrelate`` of each
    (tile, band) pair on ``torch.fft``;
 4. response filter + float64 polynomial fit on the host;
-5. the alignment remap of each whole band (fast mode: kernel (c), or the
-   staged remap beyond its row bound), leading overlap rows trimmed;
+5. the alignment remap: the parity route (``fast=False``, the default)
+   remaps the reference's bordered sections of ``line_per_section`` lines
+   with section-local maps (:func:`~..ops.resample.remap_section_u16`,
+   bit for bit ``cv::remap``); fast mode remaps each whole band (kernel
+   (c), or the staged remap beyond its row bound); the leading overlap
+   rows are trimmed;
 6. the ALIGNED.TIFF, channels [2, 1, 0, 3] (cv::imwrite's BGRA order).
-
-The parity route (``fast=False``: the reference's bordered 20000-line
-sections) is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -49,7 +49,6 @@ from ..io import raw as raw_io
 from ..io import tiff as tiff_io
 from ..ops import phasecorr, polyfit, resample, rrc
 from .scene import load_rrc, resolve_device
-from .stitcher import PARITY_NOT_PORTED
 
 _WRITE_CHUNK_ROWS = 4096   # PAN rows per RRC TIFF write
 
@@ -71,9 +70,12 @@ class PreProcessor:
     rrc_pan_file: str = ""
     rrc_mss_files: tuple[str, str, str, str] | None = None
     out_dir: str | None = None
+    # the parity route's coordinate convention: True = OpenCV <= 4.x's
+    # 1/32-px grid, False = OpenCV 5.x's continuous coordinates
+    quantized_coords: bool = False
     pixels_per_line: int = PIXELS_PER_LINE   # test hook; camera default 12288
-    # fast=True: whole-band remap (the JAX package's fast mode); False (its
-    # default, the parity route) is refused
+    # fast=True: whole-band remap (the JAX package's fast mode, within 1 DN
+    # of the parity route); False: the reference's bordered sections
     fast: bool = False
     device: str | torch.device = "cuda"
 
@@ -83,8 +85,6 @@ class PreProcessor:
     coeff_y: np.ndarray | None = None   # (4, 3) ascending
 
     def __post_init__(self):
-        if not self.fast:
-            raise ValueError(PARITY_NOT_PORTED)
         self.device = resolve_device(self.device)
         self.band_px = self.pixels_per_line // MSS_BANDS
         self.pan = raw_io.RawStrip(self.pan_file, self.pixels_per_line)
@@ -284,12 +284,19 @@ class PreProcessor:
         keep_leading_lines: bool = False,
         write_tiff: bool = True,
     ) -> np.ndarray | str:
-        """Fast-mode alignment: each whole band remapped in one pass
-        (:func:`~..ops.resample.remap_band_fast_chunked`), then the first
+        """The alignment remap (preproc.h:351-425), then the first
         ``section_overlap`` rows trimmed unless ``keep_leading_lines``.
-        ``line_per_section`` is checked as the reference checks it; the
-        fast route has no sections.  Returns the ALIGNED.TIFF path, or the
-        (rows, band_px, 4) array when ``write_tiff`` is False."""
+
+        The parity route reproduces the reference's section geometry:
+        ``line_per_section`` batches advancing by ``line_per_section -
+        section_overlap`` until fewer than IBPA_MIN_PROCESSLINES lines are
+        left, each remapped with section-local maps (border value 0 at the
+        section's edges) and its first ``section_overlap`` rows trimmed.
+        Fast mode remaps each whole band in one pass
+        (:func:`~..ops.resample.remap_band_fast_chunked`) and checks
+        ``line_per_section`` only as the reference does.  Returns the
+        ALIGNED.TIFF path, or the (rows, band_px, 4) array when
+        ``write_tiff`` is False."""
         if section_overlap > IBPA_MAX_LINEOVERLAP:
             raise ValueError(
                 f"Overlap value {section_overlap} exceeds maximum allowed "
@@ -308,15 +315,22 @@ class PreProcessor:
         skip = 0 if keep_leading_lines else section_overlap
         total_out = self.lines_mss - line_offset - skip
         aligned = np.zeros((total_out, self.band_px, MSS_BANDS), np.uint16)
-        with stage("alignment_fast", self.mss.nbytes):
-            # one band in flight at a time (bounded device and host memory)
-            for b in range(MSS_BANDS):
-                whole = resample.remap_band_fast_chunked(
-                    self.band_rows(b, line_offset, self.lines_mss),
-                    self.coeff_x[b].astype(np.float32),
-                    self.coeff_y[b].astype(np.float32),
-                )
-                aligned[..., b] = whole[skip:skip + total_out].cpu().numpy()
+        if self.fast:
+            with stage("alignment_fast", self.mss.nbytes):
+                # one band in flight at a time (bounded device and host
+                # memory)
+                for b in range(MSS_BANDS):
+                    whole = resample.remap_band_fast_chunked(
+                        self.band_rows(b, line_offset, self.lines_mss),
+                        self.coeff_x[b].astype(np.float32),
+                        self.coeff_y[b].astype(np.float32),
+                    )
+                    aligned[..., b] = \
+                        whole[skip:skip + total_out].cpu().numpy()
+        else:
+            with stage("alignment", self.mss.nbytes):
+                self._align_sections(aligned, line_per_section, line_offset,
+                                     section_overlap, keep_leading_lines)
         if not write_tiff:
             return aligned
         path = build_output_file_path(
@@ -325,6 +339,39 @@ class PreProcessor:
         tiff_io.write_tiff(path, aligned[..., [2, 1, 0, 3]])
         olog("Aligned MSS written to %s", path)
         return path
+
+    def _align_sections(self, aligned: np.ndarray, line_per_section: int,
+                        line_offset: int, section_overlap: int,
+                        keep_leading_lines: bool) -> None:
+        """The parity route's sections into ``aligned`` (as the JAX
+        package's ``do_inter_band_alignment``): rows beyond the last
+        section that was processed stay 0, as in the reference."""
+        plans = [
+            resample.plan_for_band_alignment(
+                self.coeff_x[b], self.coeff_y[b], self.band_px,
+                self.quantized_coords)
+            for b in range(MSS_BANDS)
+        ]
+        offset, processed, sec_i = line_offset, 0, 0
+        while True:
+            lines = min(self.lines_mss - offset, line_per_section)
+            if self.lines_mss < offset or lines < IBPA_MIN_PROCESSLINES:
+                break
+            olog("[SEC%d] %d lines for processing [offset=%d].",
+                 sec_i + 1, lines, offset)
+            merged = np.empty((lines, self.band_px, MSS_BANDS), np.uint16)
+            for b in range(MSS_BANDS):
+                merged[:, :, b] = resample.remap_section_u16(
+                    self.band_rows(b, offset, offset + lines), plans[b]
+                ).cpu().numpy()
+            if sec_i == 0 and keep_leading_lines:
+                aligned[:section_overlap] = merged[:section_overlap]
+                processed += section_overlap
+            n_keep = lines - section_overlap
+            aligned[processed:processed + n_keep] = merged[section_overlap:]
+            processed += n_keep
+            offset += line_per_section - section_overlap
+            sec_i += 1
 
 
 def _correlate_tiles(pan_tiles: torch.Tensor, band_tiles: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Cubic resampling of the fast scene path, in PyTorch.
+"""Cubic resampling in PyTorch: the fast scene path and the parity remap.
 
-Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``'s fast path:
+Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``:
 
 * :func:`upsample4_f32` -- the exact x4 ``cv::resize`` INTER_CUBIC float
   path (registration tiles, scene synthesis and tests), and
@@ -13,17 +13,26 @@ Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``'s fast path:
   :func:`remap_bands_interleaved` remaps a stack of bands into the
   pixel-interleaved raster, one kernel-(c) launch for all of them;
 * :func:`remap_const_stitch_chunked` -- RRC of both PANs, the prestitch
-  translation of PAN2 and the seam concat: kernel (d) on CUDA.
+  translation of PAN2 and the seam concat: kernel (d) on CUDA;
+* :func:`remap_section_u16` (with :func:`remap_polynomial_u16` and
+  :func:`remap_constant_shift_u16`) -- the parity route's ``cv::remap``
+  INTER_CUBIC of one section with the reference's section-local maps, in
+  either coordinate convention, bit for bit the numpy oracle
+  ``cv_exact.remap_cubic_u16_exact`` of the JAX package.  Plain PyTorch
+  on every device: the JAX package computes it in XLA, not in a TPU
+  kernel.
 
-The column cubic keeps the semantics of the JAX package's banded column
-matrix (``_col_interp_matrix``): taps outside the image, or outside their
-``col_block`` block's ``col_halo`` window, are dropped.  All weight and
-coordinate arithmetic is float32 in the reference's expression order.
+The fast path's column cubic keeps the semantics of the JAX package's
+banded column matrix (``_col_interp_matrix``): taps outside the image, or
+outside their ``col_block`` block's ``col_halo`` window, are dropped.  All
+weight and coordinate arithmetic is float32 in the reference's expression
+order.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -605,3 +614,189 @@ def remap_const_stitch_chunked(
         return _stitch_tail_plain(*args)
     return _stitch_tail_cuda(*args)
 
+
+
+# ---------------------------------------------------------------------------
+# The parity remap: cv::remap INTER_CUBIC / BORDER_CONSTANT(0) on uint16
+# with float32 maps, mapx per column and mapy(y, x) = float32(y + g[x])
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RemapPlan:
+    """Per-column map data of a remap, built on the host in float64 as the
+    reference builds its maps (preproc.h:443-450, stitcher.h:93-99).
+
+    The JAX package's ``RemapPlan`` with ``g`` kept in float64 in place of
+    its float32 ``g_hi``/``g_lo`` pair (the TPU has no float64)."""
+
+    width: int
+    col_tap0: np.ndarray          # (W,) int32 first column tap (may be < 0)
+    wx: np.ndarray                # (4, W) float32 column weights
+    g: np.ndarray                 # (W,) float64: mapy(y, x) = f32(y + g[x])
+    col_shifts: tuple[int, ...]   # range of col_tap0[x] - x
+    row_offsets: tuple[int, ...]  # range of floor(mapy(y, x)) - y
+    quantized: bool
+
+    @property
+    def halo_top(self) -> int:
+        """Rows above an output row that its taps may read."""
+        return max(0, -(self.row_offsets[0] - 1))
+
+    @property
+    def halo_bottom(self) -> int:
+        """Rows below an output row that its taps may read."""
+        return max(0, self.row_offsets[-1] + 2)
+
+
+def build_remap_plan(mapx_cols: np.ndarray, g: np.ndarray,
+                     quantized_coords: bool = False) -> RemapPlan:
+    """A plan from ``mapx_cols`` (W,) float64, the mapx of each column,
+    and ``g`` (W,) float64 (from the JAX package's ``build_remap_plan``).
+
+    Column coordinates as ``cv::remap`` takes them from the float32 map:
+    quantized (OpenCV <= 4.x) ``s = rint(32 m)``, tap ``(s >> 5) - 1``,
+    fraction ``(s & 31) / 32``; continuous (OpenCV 5.x) tap ``floor(m) -
+    1``, fraction ``m - floor(m)``."""
+    mapx_cols = np.asarray(mapx_cols, np.float64)
+    g = np.asarray(g, np.float64)
+    w = mapx_cols.shape[0]
+    mx32 = mapx_cols.astype(np.float32)
+    if quantized_coords:
+        sx = np.rint(mx32 * np.float32(32.0)).astype(np.int64)
+        ix = np.clip(sx >> 5, -32768, 32767).astype(np.int32)
+        fx = (sx & 31).astype(np.float32) * np.float32(1.0 / 32.0)
+    else:
+        ix = np.floor(mx32).astype(np.int32)
+        fx = (mx32 - ix).astype(np.float32)
+    wx = interpolate_cubic_f32(fx).T.astype(np.float32)
+    col_tap0 = (ix - 1).astype(np.int32)
+    d = col_tap0 - np.arange(w, dtype=np.int32)
+    r_lo = int(np.floor(g.min())) - 1
+    # float32(y + g) may round up to the next integer; quantized, so may the
+    # 1/32 grid
+    r_hi = int(np.floor(g.max())) + 1 + int(quantized_coords)
+    return RemapPlan(
+        width=w, col_tap0=col_tap0, wx=wx, g=g,
+        col_shifts=tuple(range(int(d.min()), int(d.max()) + 1)),
+        row_offsets=tuple(range(r_lo, r_hi + 1)),
+        quantized=quantized_coords,
+    )
+
+
+def plan_for_band_alignment(coeff_x, coeff_y, width: int,
+                            quantized_coords: bool = False) -> RemapPlan:
+    """Alignment maps from the fitted shift polynomials (preproc.h:443-450):
+    mapx = (cX1*xx + cX0 + xx)/4, G = (cY2*xx^2 + cY1*xx + cY0)/4, xx = 4x."""
+    xx = np.arange(width, dtype=np.float64) * 4.0
+    mapx = (float(coeff_x[1]) * xx + float(coeff_x[0]) + xx) / 4.0
+    g = (float(coeff_y[2]) * xx * xx + float(coeff_y[1]) * xx
+         + float(coeff_y[0])) / 4.0
+    return build_remap_plan(mapx, g, quantized_coords)
+
+
+def plan_for_constant_shift(dx: float, dy: float, width: int,
+                            quantized_coords: bool = False) -> RemapPlan:
+    """Prestitch translation maps (stitcher.h:93-99): mapx = x + dx,
+    mapy = y + dy, summed in double and stored as float32."""
+    x = np.arange(width, dtype=np.float64) + float(dx)
+    return build_remap_plan(x, np.full(width, float(dy), np.float64),
+                            quantized_coords)
+
+
+PARITY_CHUNK_ROWS = 2048   # output rows a step of remap_section_u16
+
+
+def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
+                col_idx: torch.Tensor, col_ok: torch.Tensor,
+                g: torch.Tensor, y0: int, y1: int) -> torch.Tensor:
+    """Output rows [y0, y1) of the section ``src``: float32 (y1 - y0, W)
+    before rounding.  Every float operation is one rounded IEEE operation
+    in the oracle's order (no multiply-add is fused)."""
+    rows, width = src.shape
+    f32 = torch.float32
+    # source rows [b0, b1) with zeros beyond the section, plus one zero
+    # guard row at each end: a tap outside the plan's reach lands there
+    b0, b1 = y0 - plan.halo_top, y1 + plan.halo_bottom
+    buf = torch.zeros((b1 - b0 + 2, width), dtype=f32, device=src.device)
+    lo, hi = max(b0, 0), min(b1, rows)
+    if hi > lo:
+        buf[lo - b0 + 1:hi - b0 + 1].copy_(src[lo:hi])
+    # the 4 column taps of every pixel, 0 outside the width
+    colg = buf.index_select(1, col_idx).view(-1, width, 4)
+    colg.masked_fill_(~col_ok, 0.0)
+    colg = colg.view(-1, 4)
+
+    y = torch.arange(y0, y1, dtype=torch.float64, device=src.device)
+    v = (y[:, None] + g[None, :]).to(f32)       # float32(y + g), as the map
+    if plan.quantized:
+        s = torch.round(v * 32.0).to(torch.int64)
+        iy = torch.clamp(s >> 5, -32768, 32767)
+        fy = (s & 31).to(f32) * (1.0 / 32.0)
+    else:
+        fl = torch.floor(v)
+        iy = fl.to(torch.int64)
+        fy = v - fl
+    del v
+    wy = _cubic_weights_f32(fy)
+    del fy
+    # buffer row of tap a = 0: source row iy - 1 sits at iy - 1 - b0 + 1
+    base = iy - b0
+    del iy
+    x = torch.arange(width, device=src.device)
+    acc = None
+    for a in range(4):
+        r = torch.clamp(base + a, 0, buf.shape[0] - 1)
+        taps = colg.index_select(0, (r * width + x).view(-1)).view(
+            y1 - y0, width, 4)
+        # W[a, b] = float32(wy[a] * wx[b]); each tap row summed in b order
+        p = taps * (wy[a][..., None] * wx)
+        t = ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def remap_section_u16(src: torch.Tensor, plan: RemapPlan) -> torch.Tensor:
+    """``cv::remap(section, mapx, mapy, INTER_CUBIC, BORDER_CONSTANT, 0)``
+    of a (rows, W) uint16 section with the section-local maps of ``plan``:
+    rows and columns outside the section read 0, a pixel whose whole 4x4
+    support lies outside is 0, the sum is rounded half to even and clamped
+    to [0, 65535].  Returns (rows, W) uint16 on ``src``'s device.
+
+    Works through the section :data:`PARITY_CHUNK_ROWS` output rows at a
+    time (read at call time), each with its halo rows and its absolute
+    ``y``: the result does not depend on the chunking.  Taps beyond the
+    plan's row range (only where quantized coordinates saturate at int16,
+    in sections over 32767 rows) read 0."""
+    rows, width = src.shape
+    if width != plan.width:
+        raise ValueError(
+            f"remap_section_u16: section width {width} != plan width "
+            f"{plan.width}")
+    dev = src.device
+    wx = torch.from_numpy(np.ascontiguousarray(plan.wx.T)).to(dev)
+    cols = torch.from_numpy(plan.col_tap0.astype(np.int64))[:, None] + \
+        torch.arange(4)
+    col_ok = ((cols >= 0) & (cols < width)).to(dev)
+    col_idx = torch.clamp(cols, 0, width - 1).view(-1).to(dev)
+    g = torch.from_numpy(plan.g).to(dev)
+    chunk = PARITY_CHUNK_ROWS
+    out = torch.empty((rows, width), dtype=torch.uint16, device=dev)
+    for y0 in range(0, rows, chunk):
+        y1 = min(y0 + chunk, rows)
+        out[y0:y1] = _round_u16(
+            _remap_rows(src, plan, wx, col_idx, col_ok, g, y0, y1))
+    return out
+
+
+def remap_polynomial_u16(src: torch.Tensor, coeff_x, coeff_y,
+                         quantized_coords: bool = False) -> torch.Tensor:
+    """Band-alignment remap of one section with fitted polynomials."""
+    return remap_section_u16(src, plan_for_band_alignment(
+        coeff_x, coeff_y, src.shape[1], quantized_coords))
+
+
+def remap_constant_shift_u16(src: torch.Tensor, dx: float, dy: float,
+                             quantized_coords: bool = False) -> torch.Tensor:
+    """Prestitch constant-translation remap of one section."""
+    return remap_section_u16(src, plan_for_constant_shift(
+        dx, dy, src.shape[1], quantized_coords))

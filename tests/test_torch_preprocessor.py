@@ -1,6 +1,7 @@
 """Port registration + alignment (models/preprocessor, the CLI's default
-action) against the JAX package's fast-mode PreProcessor on the same RAW
-files and RRC CSVs."""
+action) against the JAX package's PreProcessor on the same RAW files and
+RRC CSVs: the fast route, and the parity route against JAX's with the
+numpy ``cv::remap`` oracle in place of its XLA remap."""
 
 import functools
 import os
@@ -8,7 +9,9 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_parity_oracle import use_oracle_remap
 
+from opticalimageprocessor_tpu import cli as jcli
 from opticalimageprocessor_tpu.formats.rrc_csv import save_rrc_params
 from opticalimageprocessor_tpu.io import tiff as tiff_io
 from opticalimageprocessor_tpu.models import preprocessor as jpre
@@ -170,16 +173,27 @@ def test_cli_default_action_matches_model_api(scene, runs, monkeypatch,
 
 
 def test_parity_route_is_refused(scene):
+    """The parity route, refused until it was ported, is the default and
+    runs: one 1600-line section, the leading 520 overlap rows trimmed."""
     _, files = scene
-    with pytest.raises(ValueError, match="parity route"):
-        pre.PreProcessor(files["pan"], files["mss"], pixels_per_line=PPL,
-                         device="cpu")
+    pp = pre.PreProcessor(files["pan"], files["mss"], pixels_per_line=PPL,
+                          device="cpu")
+    assert not pp.fast
+    pp.load_and_rrc(do_rrc_mss=False)
+    pp.coeff_x, pp.coeff_y = np.zeros((4, 2)), np.zeros((4, 3))
+    got = pp.do_inter_band_alignment(20000, write_tiff=False)
+    want = np.fromfile(files["mss"], "<u2").reshape(LINES_MSS, 4, BAND_PX)
+    # the zero shift is the identity (the weights are exactly 0, 1, 0, 0)
+    np.testing.assert_array_equal(got, want[520:].transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("case", ["no_fast", "mesh", "profile",
                                   "orphan_rrc_pan", "missing_mss",
                                   "bad_threshold", "missing_band_rrc"])
 def test_cli_usage_errors(scene, case):
+    """Usage errors give 254; without ``--fast`` (the parity route, which
+    once gave 254) the JAX CLI's rc for the same argv: 2, the camera width
+    does not divide this scene's files."""
     _, files = scene
     base = ["--pan", files["pan"], "--mss", files["mss"], "--device", "cpu"]
     for b in range(1, 5):
@@ -195,7 +209,11 @@ def test_cli_usage_errors(scene, case):
         "missing_band_rrc": ["--fast", "--pan", files["pan"], "--mss",
                              files["mss"]],
     }[case]
-    assert cli.main(argv) == 254
+    if case == "no_fast":
+        i = argv.index("--device")
+        assert cli.main(argv) == jcli.main(argv[:i] + argv[i + 2:]) == 2
+    else:
+        assert cli.main(argv) == 254
 
 
 def test_cli_runtime_error_is_rc2(scene):
@@ -205,3 +223,104 @@ def test_cli_runtime_error_is_rc2(scene):
     argv = ["--fast", "--pan", files["pan"], "--mss", files["mss"],
             "--no-rrc4mss", "--device", "cpu"]
     assert cli.main(argv) == 2
+
+
+# -- the parity route: bordered sections in both coordinate modes -----------
+
+SEC_MSS_LINES = 3100
+PINNED_X = [[4.0 * VX[b] + 0.3, -2.1e-4] for b in range(4)]
+PINNED_Y = [[4.0 * VY[b] - 0.4, 6.5e-4, -3.0e-7] for b in range(4)]
+MODES = pytest.mark.parametrize("quantized", [False, True],
+                                ids=["continuous", "quantized"])
+# (keep_leading_lines, line_offset): 1600-line sections overlapping by 100
+# rows at offsets 0 and 1500, or 37, 1537 (a short last section of 1563)
+LAYOUTS = pytest.mark.parametrize("keep,offset", [(False, 0), (True, 37)],
+                                  ids=["trimmed", "keep_leading"])
+
+
+@pytest.fixture(scope="module")
+def section_files(tmp_path_factory):
+    """A 3100-line MSS of noise with random band RRC CSVs, beside a PAN
+    file of 4x its size that nothing reads (the fit is pinned)."""
+    d = tmp_path_factory.mktemp("pre_sections")
+    rng = np.random.default_rng(5)
+    files = {"pan": str(d / "sec.PAN.RAW"), "mss": str(d / "sec.MSS.RAW")}
+    rng.integers(0, 65536, (SEC_MSS_LINES, PPL), dtype=np.uint16).tofile(
+        files["mss"])
+    with open(files["pan"], "wb") as f:
+        f.truncate(4 * SEC_MSS_LINES * PPL * 2)
+    for b in range(1, 5):
+        files[f"rrc_msb{b}"] = str(d / f"msb{b}.csv")
+        save_rrc_params(files[f"rrc_msb{b}"], np.stack(
+            [0.98 + 0.04 * rng.random(BAND_PX), rng.normal(0, 20, BAND_PX)],
+            1))
+    return files
+
+
+def _align_sections(module, files, quantized, keep, offset, **extra):
+    pp = module.PreProcessor(files["pan"], files["mss"], "", _rrc_mss(files),
+                             pixels_per_line=PPL, quantized_coords=quantized,
+                             **extra)
+    pp.load_and_rrc(do_rrc_pan=False, do_rrc_mss=True)
+    pp.coeff_x, pp.coeff_y = np.array(PINNED_X), np.array(PINNED_Y)
+    return pp.do_inter_band_alignment(1600, offset, 100,
+                                      keep_leading_lines=keep,
+                                      write_tiff=False)
+
+
+@MODES
+@LAYOUTS
+def test_parity_sections_equal_jax_with_oracle(section_files, monkeypatch,
+                                               quantized, keep, offset):
+    """With the oracle in place of JAX's XLA remap, JAX's parity route
+    gives the reference's bytes: the port's ALIGNED array equals them, two
+    sections with their overlap trimmed (or the first one's kept)."""
+    got = _align_sections(pre, section_files, quantized, keep, offset,
+                          device="cpu")
+    use_oracle_remap(monkeypatch)
+    want = _align_sections(jpre, section_files, quantized, keep, offset)
+    assert got.shape == want.shape == (
+        SEC_MSS_LINES - offset - (0 if keep else 100), BAND_PX, 4)
+    np.testing.assert_array_equal(got, want)
+
+
+@MODES
+def test_parity_sections_within_jax(section_files, quantized):
+    """Against JAX's own XLA:CPU parity route: <= 1 DN on < 2% of pixels;
+    the two coordinate modes differ."""
+    got = _align_sections(pre, section_files, quantized, False, 0,
+                          device="cpu")
+    want = _align_sections(jpre, section_files, quantized, False, 0)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02, (d.max(), (d > 0).mean())
+    other = _align_sections(pre, section_files, not quantized, False, 0,
+                            device="cpu")
+    assert not np.array_equal(got, other)
+
+
+@MODES
+def test_cli_parity_matches_model_api(scene, monkeypatch, tmp_path,
+                                      quantized):
+    """The default action without ``--fast`` (at the test width), in each
+    ``--coord-mode``, writes the model API's ALIGNED.TIFF byte for byte."""
+    _, files = scene
+    api = pre.PreProcessor(files["pan"], files["mss"], files["rrc_pan"],
+                           _rrc_mss(files), out_dir=str(tmp_path),
+                           pixels_per_line=PPL, quantized_coords=quantized,
+                           device="cpu")
+    api.load_and_rrc(do_rrc_pan=True, do_rrc_mss=True)
+    api.calc_inter_band_correlation(slices=8, sections=1, threshold=0.4)
+    want = api.do_inter_band_alignment(20000, 0, 520)
+    monkeypatch.setattr(pre, "PreProcessor",
+                        functools.partial(pre.PreProcessor,
+                                          pixels_per_line=PPL))
+    os.mkdir(tmp_path / "cli")
+    argv = ["--pan", files["pan"], "--mss", files["mss"], "--do-rrc4pan",
+            "--rrc-pan", files["rrc_pan"], "--slices", "8", "--ibc-sections",
+            "1", "--out-dir", str(tmp_path / "cli"), "--device", "cpu",
+            "--coord-mode", "quantized" if quantized else "continuous"]
+    for b in range(1, 5):
+        argv += [f"--rrc-msb{b}", files[f"rrc_msb{b}"]]
+    assert cli.main(argv) == 0
+    got = tmp_path / "cli" / os.path.basename(want)
+    assert got.read_bytes() == open(want, "rb").read()

@@ -1,6 +1,7 @@
 """Port prestitch/stitch (models/stitcher, cli prestitch/stitch) against
-the JAX package's fast-mode Stitcher and stitch writers, on the same RAW
-files and RRC CSVs."""
+the JAX package's Stitcher and stitch writers, on the same RAW files and
+RRC CSVs: the fast route, and the parity route against JAX's with the
+numpy ``cv::remap`` oracle in place of its XLA remap."""
 
 import functools
 import os
@@ -8,11 +9,13 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_parity_oracle import use_oracle_remap
 
 from opticalimageprocessor_tpu import cli as jcli
 from opticalimageprocessor_tpu.formats.rrc_csv import save_rrc_params
 from opticalimageprocessor_tpu.io import tiff as tiff_io
 from opticalimageprocessor_tpu.models import stitcher as jst
+from opticalimageprocessor_tpu.ops import cv_exact
 from opticalimageprocessor_tpu_torch import cli
 from opticalimageprocessor_tpu_torch.models import stitcher as st
 
@@ -44,7 +47,7 @@ def _write_pair(d, rng, dy):
 def _run(module, files, out_dir, **extra):
     os.mkdir(out_dir)
     s = module.Stitcher(files["pan1"], files["pan2"], files["rrc1"],
-                        files["rrc2"], out_dir=out_dir, **KW, **extra)
+                        files["rrc2"], out_dir=out_dir, **{**KW, **extra})
     s.calc_stt_parameters(threshold=0.05)
     s.do_rrc()
     n = s.pre_stitch()
@@ -130,12 +133,25 @@ def test_cli_prestitch_matches_model_api(runs, monkeypatch, tmp_path):
         assert got.read_bytes() == open(want, "rb").read()
 
 
-def test_parity_route_is_refused(tmp_path):
+def test_parity_route_is_refused(tmp_path, rng):
+    """The parity route, refused until it was ported, is the default and
+    runs: a one-section strip is the oracle's remap with the reference's
+    float32 map fill, its bottom cut row included (the fresh tail), and
+    pre_stitch returns SectionaryRemap's count."""
     p = str(tmp_path / "a.RAW")
-    np.zeros((8, 64), np.uint16).tofile(p)
-    with pytest.raises(ValueError, match="parity route"):
-        st.Stitcher(p, p, pixels_per_line=64, sections=1,
-                    line_per_section=8, device="cpu")
+    src = rng.integers(0, 65536, (8, 64), dtype=np.uint16)
+    src.tofile(p)
+    s = st.Stitcher(p, p, pixels_per_line=64, sections=1,
+                    line_per_section=8, out_dir=str(tmp_path), device="cpu")
+    assert not s.fast
+    s.delta_x, s.delta_y = -1.25, 0.5
+    assert s.pre_stitch() == 7          # 8 rows less the bottom cut of 1
+    mapx = np.tile((np.arange(64.0) - 1.25).astype(np.float32), (8, 1))
+    mapy = np.tile((np.arange(8.0) + 0.5).astype(np.float32)[:, None],
+                   (1, 64))
+    np.testing.assert_array_equal(
+        np.fromfile(s.prestt_file_pan2, "<u2").reshape(8, 64),
+        cv_exact.remap_cubic_u16_exact(src, mapx, mapy))
 
 
 def test_average_valid_deltas_matches_jax(rng):
@@ -199,7 +215,7 @@ def test_stitch_raw_byte_equal_to_jax(tmp_path, rng, out):
 
 @pytest.mark.parametrize("case,rc", [
     ("stitch_fold_too_small", 254), ("stitch_map_without_gdal", 254),
-    ("stitch_mixed_types", 2), ("prestitch_without_fast", 254),
+    ("stitch_mixed_types", 2), ("prestitch_without_fast", 2),
     ("prestitch_mesh", 254), ("prestitch_profile", 254),
     ("prestitch_missing_pan2", 254), ("prestitch_bad_edge_cols", 254),
     ("auxsep", 254),
@@ -235,3 +251,110 @@ def test_cli_prestitch_runtime_error_is_rc2(tmp_path):
             "-l", "16"]
     assert jcli.main(argv) == 2
     assert cli.main(argv + ["--device", "cpu"]) == 2
+
+
+# -- the parity route: 384-row sections, both signs of delta_y, both modes --
+
+MODES = pytest.mark.parametrize("quantized", [False, True],
+                                ids=["continuous", "quantized"])
+
+
+@pytest.fixture(scope="module", params=[3, -2], ids=["ucut", "bcut"])
+def parity_pair(request, tmp_path_factory):
+    """A CMOS pair ``dy`` rows apart (stt delta_y = -dy: -3 gives the upper
+    cut, +2 the bottom cut), JAX's stt deltas and RRC'd PANs: the
+    deltas are pinned into every run below, which remaps JAX's RRC'd PAN2
+    (byte-equal to the port's, test_rrc_raw_byte_equal_to_jax)."""
+    d = str(tmp_path_factory.mktemp(f"stt_parity{request.param}"))
+    files = _write_pair(d, np.random.default_rng(23 + request.param),
+                        request.param)
+    os.mkdir(os.path.join(d, "jax"))
+    js = jst.Stitcher(files["pan1"], files["pan2"], files["rrc1"],
+                      files["rrc2"], out_dir=os.path.join(d, "jax"),
+                      **{**KW, "fast": False})
+    js.calc_stt_parameters(threshold=0.05)
+    js.do_rrc()
+    assert abs(js.delta_y + request.param) < 0.1, js.delta_y
+    return files, js
+
+
+def _prestitch(module, js, out_dir, quantized, **extra):
+    os.mkdir(out_dir)
+    s = module.Stitcher(js.pan1, js.pan2, out_dir=out_dir,
+                        quantized_coords=quantized,
+                        **{**KW, "fast": False, **extra})
+    s.delta_x, s.delta_y = js.delta_x, js.delta_y
+    s.rrc_file_pan2 = js.rrc_file_pan2
+    n = s.pre_stitch()
+    return n, _read(s.prestt_file_pan2)
+
+
+@pytest.fixture
+def short_sections(monkeypatch):
+    """384-row sections in both packages: 1024 lines give 3 sections (the
+    last one short) and, for delta_y >= 0, the rolling-buffer bottom
+    cut."""
+    monkeypatch.setattr(jst, "REMAP_SECTION_ROWS", 384)
+    monkeypatch.setattr(st, "REMAP_SECTION_ROWS", 384)
+
+
+@MODES
+def test_parity_prestitch_equals_jax_with_oracle(parity_pair, short_sections,
+                                                 monkeypatch, tmp_path,
+                                                 quantized):
+    """With the oracle in place of JAX's XLA remap, JAX's parity route
+    gives the compiled reference's bytes: the port's PRESTT.RAW equals
+    them, upper or bottom cut included, and so does the line count."""
+    _, js = parity_pair
+    n, got = _prestitch(st, js, str(tmp_path / "port"), quantized,
+                        device="cpu")
+    use_oracle_remap(monkeypatch)
+    jn, want = _prestitch(jst, js, str(tmp_path / "jax"), quantized)
+    cut = abs(int(js.delta_y)) + 1
+    assert n == jn == LINES - cut
+    assert got.shape == want.shape == (LINES, PPL)
+    np.testing.assert_array_equal(got, want)
+
+
+@MODES
+@pytest.mark.parametrize("sections", ["384", "30000"])
+def test_parity_prestitch_within_jax(parity_pair, monkeypatch, tmp_path,
+                                     quantized, sections):
+    """Against JAX's own XLA:CPU parity route, in 384-row sections and in
+    one 30000-row section (the fresh tail): <= 1 DN on < 2% of pixels;
+    the two coordinate modes differ."""
+    _, js = parity_pair
+    monkeypatch.setattr(jst, "REMAP_SECTION_ROWS", int(sections))
+    monkeypatch.setattr(st, "REMAP_SECTION_ROWS", int(sections))
+    n, got = _prestitch(st, js, str(tmp_path / "port"), quantized,
+                        device="cpu")
+    jn, want = _prestitch(jst, js, str(tmp_path / "jax"), quantized)
+    assert n == jn
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02, (d.max(), (d > 0).mean())
+    _, other = _prestitch(st, js, str(tmp_path / "other"), not quantized,
+                          device="cpu")
+    assert not np.array_equal(got, other)
+
+
+@MODES
+def test_cli_parity_prestitch_matches_model_api(parity_pair, monkeypatch,
+                                                tmp_path, quantized):
+    """``prestitch`` without ``--fast`` (at the test width), in each
+    ``--coord-mode``, writes the model API's files byte for byte."""
+    files, _ = parity_pair
+    api, _ = _run(st, files, str(tmp_path / "api"), device="cpu", fast=False,
+                  quantized_coords=quantized)
+    monkeypatch.setattr(st, "Stitcher",
+                        functools.partial(st.Stitcher, pixels_per_line=PPL))
+    os.mkdir(tmp_path / "cli")
+    rc = cli.main(["prestitch", "--pan1", files["pan1"], "--pan2",
+                   files["pan2"], "--rrc1", files["rrc1"], "--rrc2",
+                   files["rrc2"], "-s", "3", "-l", "256", "--stitch-overlap",
+                   str(OVERLAP), "--stt-threshold", "0.05", "--out-dir",
+                   str(tmp_path / "cli"), "--device", "cpu", "--coord-mode",
+                   "quantized" if quantized else "continuous"])
+    assert rc == 0
+    for want in (api.rrc_file_pan1, api.rrc_file_pan2, api.prestt_file_pan2):
+        got = tmp_path / "cli" / os.path.basename(want)
+        assert got.read_bytes() == open(want, "rb").read()
