@@ -66,10 +66,22 @@ Phases (any failure exits non-zero and prints no result line):
    count, each parity output at 0 DN against the oracle on row windows at
    every section edge and the bottom cut, > 1 DN from the ``--fast`` one
    on < 1% of each section's first 1024 rows (continuous mode), the modes
-   different, kernel (a) launched.
+   different, kernel (a) launched;
+8. docs/sample-task.sh from the raw downlink: phase 5's 16384-line scene
+   framed into two downlinks (CMOS1: PAN1 and the MSS; CMOS2: PAN2), 16
+   image frames each with random AUX blocks, leading junk, empty frames,
+   frames flagged invalid and CRC-corrupted duplicates; ``auxsep`` through
+   ``cli.main`` on each (the native host library required), its .IMDT,
+   .PAN.RAW, .MSS.RAW and .AUX byte for byte what was framed, its stages'
+   s and MB/s; ``prestitch --fast --profile``, the default ``--fast`` and
+   ``stitch`` on the separated files, their outputs at phase 5's SHA-256;
+   from the profile's trace the kernel events of (a) and (c), the stage
+   spans, and the h2d / d2h / kernel ms and their union; the golden
+   downlinks of tests/golden through ``auxsep`` (the JPEG2000 one gives
+   rc 2 with the JAX package's diagnostic where no codec imports).
 
 The last two lines of standard output are the kernels' JSON record
-(launches over phases 3, 5, 6 and 7, error, kernel, plain and bound ms at
+(launches over phases 3, 5, 6, 7 and 8, error, kernel, plain and bound ms at
 phase 2's shapes, plus the scene shapes' ms and bound for (b) and (d), the
 streamed section's for (d), the file commands' and MSS2's shapes' ms and
 bound for (c), and each of (e)'s shapes' ms and bound) and
@@ -78,6 +90,8 @@ bound for (c), and each of (e)'s shapes' ms and bound) and
 
 from __future__ import annotations
 
+import gzip
+import hashlib
 import json
 import os
 import re
@@ -717,7 +731,7 @@ def scene_argv(files, tmp: Path, out: Path, dev, *extra):
     return argv + list(extra)
 
 
-def run_cli(tag, argv, prefix):
+def run_cli(tag, argv, prefix, want_rc=0):
     """``cli.main(argv)`` with the launch counts set to 0 just before it and
     read just after: -> (launches, wall s, this run's log text).  Prints
     each stage() span of the run (seconds, MB/s)."""
@@ -734,7 +748,7 @@ def run_cli(tag, argv, prefix):
     secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     say(f"[{prefix}] {tag}: rc {rc} in {secs:.3f} s; launches {launches}")
-    check(rc == 0, f"{tag} exit code {rc}")
+    check(rc == want_rc, f"{tag} exit code {rc}, want {want_rc}")
     text = log.read_bytes()[mark:].decode()
     for m in re.finditer(r"\] \[([^\]]+)\] (.*(?:MBps\)|seconds))\.$",
                          text, re.M):
@@ -958,15 +972,37 @@ def _raw(path, width=None):
     return np.fromfile(path, dtype="<u2").reshape(-1, width or W)
 
 
+def files_scene(torch, dev, lines):
+    """Phase 5's scene, which phase 8 frames into downlinks: PAN1, PAN2 3
+    rows apart, CMOS1's MSS (4, lines / 4, BW), and the RRC (k, b) by
+    CSV name."""
+    rng = np.random.default_rng(SEED + 3)
+    pan1, pan2, mss = synth_scene(torch, rng, lines, dev, dy=3)
+    kb = {"pan1": rand_params(rng, W), "pan2": rand_params(rng, W)}
+    for b in range(1, 5):
+        kb[f"msb{b}"] = rand_params(rng, BW)
+    return pan1, pan2, mss, kb
+
+
+def sha256_file(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
 def phase_files(dev, tmp: Path, lines: int = 16384):
+    """-> (launches over the commands, the SHA-256 of the outputs that
+    phase 8 remakes from downlinks: PRESTT.RAW of the dy = 3 pair,
+    ALIGNED.TIFF, the stitched RAW)."""
     import torch
 
     from opticalimageprocessor_tpu_torch import _build, cli
     from opticalimageprocessor_tpu_torch.io import tiff
     from opticalimageprocessor_tpu_torch.ops import resample
 
-    rng = np.random.default_rng(SEED + 3)
-    pan1, pan2a, mss = synth_scene(torch, rng, lines, dev, dy=3)
+    pan1, pan2a, mss, kb = files_scene(torch, dev, lines)
     pan2b = torch.roll(pan1.to(torch.int32), (9, FOLD_COLS - 3 - W),
                        (0, 1)).to(torch.uint16)
     files = {n: tmp / f"{n}.RAW" for n in
@@ -978,9 +1014,6 @@ def phase_files(dev, tmp: Path, lines: int = 16384):
     mss_h = mss.cpu().numpy()
     mss_h.transpose(1, 0, 2).tofile(files["CMOS1.MSS"])
     del pan1, pan2a, pan2b, mss
-    kb = {"pan1": rand_params(rng, W), "pan2": rand_params(rng, W)}
-    for b in range(1, 5):
-        kb[f"msb{b}"] = rand_params(rng, BW)
     csv = {}
     for name, (k, b) in kb.items():
         csv[name] = str(tmp / f"{name}.csv")
@@ -1120,13 +1153,17 @@ def phase_files(dev, tmp: Path, lines: int = 16384):
               "stitch launched a kernel")
         say(f"[files] stitch: width {2 * half}, left half == PAN1 byte for "
             "byte")
+        shas = {"prestt": sha256_file(tmp / "prestitch_dy3"
+                                      / "CMOS2A.PAN.RRC.PRESTT.RAW"),
+                "aligned": sha256_file(path), "stitched": sha256_file(st_path)}
+        say(f"[files] SHA-256 {json.dumps(shas)}")
     finally:
         restore()
     check(launches["prestitch_dy3"]["row_pass"] == 0
           and launches["align"]["row_pass"] == 0,
           "kernel (e) launched outside the dy = 9 prestitch")
     return {k: sum(n[k] for n in launches.values())
-            for k in _build.LAUNCHES}
+            for k in _build.LAUNCHES}, shas
 
 
 # ---------------------------------------------------------------------------
@@ -1801,6 +1838,346 @@ def phase_parity(dev, power, tmp: Path, lines: int = 40960):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: docs/sample-task.sh from the raw downlink (auxsep, then phase 5's
+# file commands on the separated files)
+# ---------------------------------------------------------------------------
+
+DOWNLINK = "KASHI_TJ3-01_20220817_031259_{}.dat"      # {}: the CMOS
+SEPARATED = "KASHI_TJ3-01_CMOS-{}_20220817_031259"     # auxsep's stem
+
+
+def _be_bytes(values: np.ndarray, width: int) -> np.ndarray:
+    """(n,) unsigned integers -> (n, width) big-endian bytes."""
+    shifts = np.arange(8 * (width - 1), -1, -8, dtype=np.uint32)
+    return ((values.astype(np.uint32)[:, None] >> shifts) & 0xFF).astype(
+        np.uint8)
+
+
+def _framed(payload: np.ndarray, n: int, width: int, out: np.ndarray):
+    """Copy a byte stream into ``out`` (n rows, ``width`` payload bytes
+    each, a strided view), zero-padding the last row."""
+    full = payload.size // width
+    out[:full] = payload[:full * width].reshape(full, width)
+    if n > full:
+        out[full, :payload.size - full * width] = payload[full * width:]
+
+
+def frame_downlink(imdt: np.ndarray, chid: int, rng):
+    """An IMDT byte stream (uint8) framed for the downlink, vectorised:
+    ``formats/aos``'s build_imtr_stream and build_aos_stream with the
+    native CRC (the per-frame builders are too slow at this size).
+
+    Returns (the stream's pieces in order, the counts auxsep must report:
+    valid, empty, invalid AOS frames).  Leading junk, then the AOS frames
+    with an extra frame after every tenth of them, which must add or lose
+    nothing: in turn an empty frame (VCID 0x3F, injection 0xAAAAAAAA), a
+    valid frame flagged invalid after its CRC was computed (injection
+    0xAAAAAAAA), and a CRC-corrupted duplicate of the frame before."""
+    from opticalimageprocessor_tpu_torch.formats import aos
+    from opticalimageprocessor_tpu_torch.utils import native
+
+    n = -(-imdt.size // aos.IMTR_IMGDATA_BYTES)
+    imtr = np.zeros((n, aos.IMTR_FRAME_BYTES), np.uint8)
+    imtr[:, :4] = np.frombuffer(aos.IMTR_SIG, np.uint8)
+    imtr[:, aos.IMTR_SEQ_OFF:aos.IMTR_SEQ_OFF + 4] = _be_bytes(
+        np.arange(1, n + 1), 4)
+    imtr[:, aos.IMTR_CHID_OFF] = chid
+    imtr[:, aos.IMTR_DTMARK_OFF] = aos.IMTR_DTMARK_IMG
+    _framed(imdt, n, aos.IMTR_IMGDATA_BYTES, imtr[
+        :, aos.IMTR_IMGDATA_OFF:aos.IMTR_IMGDATA_OFF + aos.IMTR_IMGDATA_BYTES])
+    crc = native.crc16_many(imtr.reshape(-1), np.arange(n, dtype=np.int64)
+                            * aos.IMTR_FRAME_BYTES, aos.IMTR_CRC_OFF)
+    imtr[:, aos.IMTR_CRC_OFF:aos.IMTR_CRC_OFF + 2] = _be_bytes(crc, 2)
+    imtr[:, aos.IMTR_ENDSIG_OFF:aos.IMTR_ENDSIG_OFF + 4] = np.frombuffer(
+        aos.IMTR_ENDSIG, np.uint8)
+
+    stream = imtr.reshape(-1)
+    m = -(-stream.size // aos.AOS_DATA_BYTES)
+    frames = np.zeros((m, aos.AOS_FRAME_BYTES), np.uint8)
+    frames[:, :4] = np.frombuffer(aos.SYNC_BYTES, np.uint8)
+    frames[:, 4] = 0x40
+    frames[:, aos.AOS_VCID_OFF] = 1
+    frames[:, aos.AOS_VCDUSEQ_OFF:aos.AOS_VCDUSEQ_OFF + 3] = _be_bytes(
+        np.arange(m) & 0xFFFFFF, 3)
+    del imtr
+    _framed(stream, m, aos.AOS_DATA_BYTES,
+            frames[:, aos.AOS_DATA_OFF:aos.AOS_DATA_OFF + aos.AOS_DATA_BYTES])
+    crc = native.crc16_many(
+        frames.reshape(-1),
+        np.arange(m, dtype=np.int64) * aos.AOS_FRAME_BYTES + aos.AOS_HEADER_OFF,
+        aos.AOS_CRC_OFF - aos.AOS_HEADER_OFF)
+    frames[:, aos.AOS_CRC_OFF:aos.AOS_CRC_OFF + 2] = _be_bytes(crc, 2)
+
+    inj = slice(aos.AOS_VCDUINJ_OFF, aos.AOS_VCDUINJ_OFF + 4)
+    pieces = [rng.integers(0, 256, 777, dtype=np.uint8)]
+    counts = {"valid": m, "empty": 0, "invalid": 0}
+    prev = 0
+    for i, at in enumerate(np.linspace(0, m, 11).astype(int)[1:-1]):
+        kind = ("empty", "flagged", "corrupt")[i % 3]
+        if kind == "empty":
+            extra = np.frombuffer(aos.build_empty_aos_frame(), np.uint8)
+        else:
+            extra = frames[at - 1].copy()
+            if kind == "flagged":
+                extra[inj] = 0xAA
+            else:
+                extra[aos.AOS_CRC_OFF] ^= 0xFF
+        counts["empty" if kind == "empty" else "invalid"] += 1
+        pieces += [frames[prev:at], extra]
+        prev = at
+    pieces.append(frames[prev:])
+    return pieces, counts
+
+
+def separate_downlinks(tmp: Path, scene, rng, n_frames):
+    """Steps 1 and 2: frame CMOS1's (PAN1, MSS) and CMOS2's (PAN2, MSS)
+    ``n_frames`` image frames with random AUX blocks into two downlinks,
+    run ``cli.main(["auxsep", ...])`` on each, and hold the separated
+    .IMDT, .PAN.RAW, .MSS.RAW and .AUX byte for byte to what was framed;
+    -> (the separated PAN1, PAN2 and MSS paths, a record of the runs)."""
+    from opticalimageprocessor_tpu_torch.formats import aos
+    from opticalimageprocessor_tpu_torch.models.auxsep import AuxSeparator
+
+    pans, mss_rows = scene
+    out = tmp / "separated"
+    out.mkdir()
+    res = {}
+    for cmos, chid in ((1, aos.IMTR_CHID_CMOS1), (2, aos.IMTR_CHID_CMOS2)):
+        t0 = time.perf_counter()
+        pan = pans[cmos - 1]
+        aux = rng.integers(0, 256, (n_frames, aos.IMGSIG_AUX_ALLBYTES),
+                           dtype=np.uint8)
+        imdt = np.frombuffer(b"".join(
+            aos.build_image_frame(
+                pan[i * aos.IMGSIG_PAN_LINES:(i + 1) * aos.IMGSIG_PAN_LINES],
+                mss_rows[i * aos.IMGSIG_MSS_LINES:
+                         (i + 1) * aos.IMGSIG_MSS_LINES],
+                seq=i + 1, aux=aux[i].tobytes())
+            for i in range(n_frames)), np.uint8)
+        pieces, counts = frame_downlink(imdt, chid, rng)
+        dl = tmp / DOWNLINK.format(cmos)
+        with open(dl, "wb") as f:
+            for p in pieces:
+                f.write(memoryview(p.reshape(-1)))
+        del pieces
+        rec = dict(framing_s=time.perf_counter() - t0, imdt_bytes=imdt.size,
+                   aos_bytes=dl.stat().st_size,
+                   chunk_bytes=AuxSeparator(str(dl)).chunk_bytes)
+        launches, rec["wall_s"], text = run_cli(
+            f"auxsep CMOS{cmos}", ["auxsep", str(dl), "--out-dir", str(out)],
+            "downlink")
+        check(not any(launches.values()), f"auxsep launched {launches}")
+        for m in re.finditer(r"\[(aos_scan|imdt_extract)\] ([\d,]+) bytes in "
+                             r"([\d.,]+) seconds \(([\d.,]+) MBps\)", text):
+            rec[m.group(1)] = dict(s=float(m.group(3).replace(",", "")),
+                                   MBps=float(m.group(4).replace(",", "")))
+        check({"aos_scan", "imdt_extract"} <= set(rec), "auxsep stage parse")
+        got = re.findall(r"AOS frames: (\d+) valid, (\d+) empty, (\d+) "
+                         r"invalid", text)
+        check(got == [tuple(str(counts[k]) for k in
+                            ("valid", "empty", "invalid"))],
+              f"CMOS{cmos}: AOS frames {got}, framed {counts}")
+
+        stem = out / SEPARATED.format(cmos)
+        sep = np.memmap(f"{stem}.IMDT", np.uint8, mode="r")
+        check(sep.size == -(-imdt.size // aos.IMTR_IMGDATA_BYTES)
+              * aos.IMTR_IMGDATA_BYTES
+              and np.array_equal(sep[:imdt.size], imdt)
+              and not sep[imdt.size:].any(),
+              f"CMOS{cmos}: .IMDT != the framed image frames")
+        for ext, want in ((".PAN.RAW", pan), (".MSS.RAW", mss_rows)):
+            sep = np.memmap(f"{stem}{ext}", "<u2", mode="r")
+            check(sep.size == want.size
+                  and np.array_equal(sep.reshape(want.shape), want),
+                  f"CMOS{cmos}: {ext} != what was framed")
+        check(Path(f"{stem}.AUX").read_bytes() == aux.tobytes(),
+              f"CMOS{cmos}: .AUX != what was framed")
+        del sep, imdt
+        dl.unlink()
+        Path(f"{stem}.IMDT").unlink()
+        say(f"[downlink] CMOS{cmos}: {json.dumps(rec)}; .IMDT, .PAN.RAW, "
+            ".MSS.RAW and .AUX == what was framed, byte for byte")
+        res[f"cmos{cmos}"] = rec
+    stems = [out / SEPARATED.format(c) for c in (1, 2)]
+    return (Path(f"{stems[0]}.PAN.RAW"), Path(f"{stems[1]}.PAN.RAW"),
+            Path(f"{stems[0]}.MSS.RAW")), res
+
+
+def trace_split(prof: Path) -> dict:
+    """Step 4: the one torch.profiler trace of ``prestitch --profile``: its
+    kernel events of (a) and (c) and its stage spans, and the device time
+    by class (h2d / d2h / d2d copies, kernels) and their union, in ms."""
+    traces = list(prof.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile wrote {len(traces)} traces")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e["dur"] / 1e6 for e in events
+             if e.get("cat") == "user_annotation" and "dur" in e}
+    check("prestitch_fast" in spans
+          and any(n.startswith("rrc:") for n in spans),
+          f"the trace lacks the rrc:* / prestitch_fast spans: {sorted(spans)}")
+    dev_ev = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    names = {e["name"] for e in dev_ev if e.get("cat") == "kernel"}
+    for kernel in ("rrc_kernel", "remap_bands_kernel"):
+        check(any(kernel in n for n in names),
+              f"the trace has no {kernel} event: {sorted(names)[:20]}")
+    by: dict[str, list] = {}
+    for e in dev_ev:
+        by.setdefault(_copy_class(e["name"]), []).append(
+            (e["ts"], e["ts"] + e["dur"]))
+    out = {f"{k}_ms": _union_ms(v) for k, v in sorted(by.items())}
+    out["device_union_ms"] = _union_ms(iv for v in by.values() for iv in v)
+    # the interval the trace covers: the command's wall less this is the
+    # profiler's own start (CUPTI) and stop (collecting, writing the JSON)
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    out["traced_ms"] = (max(e["ts"] + e["dur"] for e in timed)
+                        - min(e["ts"] for e in timed)) / 1e3
+    out["spans_s"] = spans
+    return out
+
+
+def jp2_codec():
+    """The JPEG2000 decoder auxsep finds here: "cv2", "pil" (Pillow with
+    OpenJPEG) or None."""
+    try:
+        import cv2  # noqa: F401
+        return "cv2"
+    except ImportError:
+        pass
+    try:
+        from PIL import features
+    except ImportError:
+        return None
+    return "pil" if features.check("jpg_2000") else None
+
+
+def golden_downlinks(tmp: Path) -> dict:
+    """Step 5: the committed golden downlinks through ``auxsep``: the raw
+    one's outputs at tests/golden/expected.json's SHA-256; the JPEG2000
+    one's too where a codec imports, else rc 2 with the JAX package's
+    diagnostic."""
+    gold = ROOT / "tests" / "golden"
+    with open(gold / "expected.json") as f:
+        expected = json.load(f)
+    codec = jp2_codec()
+    res = {"jp2_codec": codec}
+    for name, keys in (("golden.dat.gz", ("pan", "mss", "aux", "imdt")),
+                       ("golden_jp2.dat.gz", ("pan", "mss", "aux"))):
+        d = tmp / name.split(".")[0]
+        d.mkdir()
+        dat = d / DOWNLINK.format(1)
+        with gzip.open(gold / name) as f:
+            dat.write_bytes(f.read())
+        ok = codec is not None or name == "golden.dat.gz"
+        _, _, text = run_cli(f"auxsep {name}",
+                             ["auxsep", str(dat), "--out-dir", str(d)],
+                             "golden", want_rc=0 if ok else 2)
+        if ok:
+            stem = d / SEPARATED.format(1)
+            for k in keys:
+                ext = {"pan": ".PAN.RAW", "mss": ".MSS.RAW", "aux": ".AUX",
+                       "imdt": ".IMDT"}[k]
+                check(sha256_file(f"{stem}{ext}") == expected[f"{k}_sha"],
+                      f"{name}: {ext} SHA-256 != expected.json")
+            res[name] = f"{'/'.join(keys)} SHA-256 == expected.json"
+        else:
+            check("JPEG2000 sub-image decoding needs OpenCV (cv2) or Pillow "
+                  "with OpenJPEG" in text, f"{name}: no codec diagnostic")
+            res[name] = "no JPEG2000 codec here: rc 2 with the diagnostic"
+        shutil.rmtree(d)
+    say(f"[golden] {json.dumps(res)}")
+    return res
+
+
+def phase_downlink(dev, power, tmp: Path, want: dict, lines: int = 16384,
+                   section_lines: int = 16000):
+    """docs/sample-task.sh from two downlinks at the camera's geometry:
+    phase 5's scene framed into CMOS1's and CMOS2's downlinks, separated by
+    ``auxsep`` byte for byte through the native library; ``prestitch
+    --fast --profile``, the default ``--fast`` and ``stitch`` on the
+    separated files, their outputs at phase 5's SHA-256 (``want``); the
+    trace's kernel events, spans and device split; the golden downlinks.
+    -> the launches of the three commands."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.formats import aos
+    from opticalimageprocessor_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    built = not os.path.exists(native._lib_path())
+    check(native.native_available(),
+          "the native host library did not load: auxsep would run its numpy "
+          "routes")
+    say(f"[downlink] native host library {native._lib_path()} loaded"
+        f"{', built by this run' if built else ''}")
+    pan1, pan2, mss, kb = files_scene(torch, dev, lines)
+    scene = ([pan1.cpu().numpy(), pan2.cpu().numpy()],
+             mss.cpu().numpy().transpose(1, 0, 2).reshape(lines // 4, W))
+    del pan1, pan2, mss
+    csv = {}
+    for name, (k, b) in kb.items():
+        csv[name] = str(tmp / f"{name}.csv")
+        _write_csv(csv[name], k, b)
+    res = {"lines": lines, "card": power, "native_built": built}
+    (p1, p2, m1), res["auxsep"] = separate_downlinks(
+        tmp, scene, np.random.default_rng(SEED + 8),
+        lines // aos.IMGSIG_PAN_LINES)
+    del scene
+
+    launches = {}
+    prof, pre, align = tmp / "profile", tmp / "prestitch", tmp / "align"
+    pre.mkdir()
+    align.mkdir()
+    launches["prestitch"], secs, _ = run_cli(
+        "prestitch --fast --profile",
+        ["prestitch", "--fast", "--pan1", str(p1), "--pan2", str(p2),
+         "--rrc1", csv["pan1"], "--rrc2", csv["pan2"], "-s", "1", "-l",
+         str(section_lines), "--stitch-overlap", str(FOLD_COLS), "--out-dir",
+         str(pre), "--device", dev.type, "--profile", str(prof)],
+        "downlink")
+    res["prestitch_wall_s"] = secs
+    argv = ["--fast", "--pan", str(p1), "--mss", str(m1), "--do-rrc4pan",
+            "--rrc-pan", csv["pan1"], "--slices", "10", "--ibc-sections", "1",
+            "--out-dir", str(align), "--device", dev.type]
+    for b in range(1, 5):
+        argv += [f"--rrc-msb{b}", csv[f"msb{b}"]]
+    launches["align"], res["align_wall_s"], _ = run_cli("align", argv,
+                                                        "downlink")
+    st_path = tmp / "STITCHED.RAW"
+    prestt = pre / f"{SEPARATED.format(2)}.PAN.RRC.PRESTT.RAW"
+    launches["stitch"], res["stitch_wall_s"], _ = run_cli(
+        "stitch", ["stitch", "--image1", str(p1), "--image2", str(prestt),
+                   "-o", str(st_path), "-c", str(FOLD_COLS)], "downlink")
+    n = launches["prestitch"]
+    check(n["rrc"] == 2 and n["remap_band"] == 1 and n["crosspower"] == 0
+          and n["stitch_tail"] == 0 and n["row_pass"] == 0,
+          f"prestitch: launches {n}")
+    n = launches["align"]
+    check(n["remap_band"] == 4 and n["rrc"] > 0 and n["row_pass"] == 0
+          and n["crosspower"] == 0 and n["stitch_tail"] == 0,
+          f"align: launches {n}")
+    check(not any(launches["stitch"].values()), "stitch launched a kernel")
+    got = {"prestt": sha256_file(prestt),
+           "aligned": sha256_file(
+               align / f"{SEPARATED.format(1)}.MSS.ALIGNED.TIFF"),
+           "stitched": sha256_file(st_path)}
+    check(got == want, f"outputs from the downlinks {got} != phase 5's {want}")
+    say("[downlink] PRESTT.RAW, ALIGNED.TIFF and the stitched RAW from the "
+        "downlinks == phase 5's, SHA-256")
+    res["prestitch_trace"] = trace_split(prof)
+    for d in (pre, align, prof, tmp / "separated"):
+        shutil.rmtree(d)
+    st_path.unlink()
+    res["golden"] = golden_downlinks(tmp)
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"[downlink] {json.dumps(res)}")
+    return {k: sum(n[k] for n in launches.values())
+            for k in launches["prestitch"]}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the device time of one forward goes
 # ---------------------------------------------------------------------------
 
@@ -1962,7 +2339,7 @@ def main() -> int:
         phase_pipeline(dev, power)
         torch.cuda.empty_cache()
         files_dir.mkdir()
-        files_launches = phase_files(dev, files_dir)
+        files_launches, files_shas = phase_files(dev, files_dir)
         shutil.rmtree(files_dir)
         torch.cuda.empty_cache()
         stream_dir = Path(tmp, "stream")
@@ -1973,10 +2350,19 @@ def main() -> int:
         parity_dir = Path(tmp, "parity")
         parity_dir.mkdir()
         parity_launches = phase_parity(dev, power, parity_dir)
+        shutil.rmtree(parity_dir)
+        torch.cuda.empty_cache()
+        downlink_dir = Path(tmp, "downlink")
+        downlink_dir.mkdir()
+        downlink_launches = phase_downlink(dev, power, downlink_dir,
+                                           files_shas)
+        shutil.rmtree(downlink_dir)
     launches = {k: launches[k] + files_launches[k] + stream_launches[k]
-                + parity_launches[k] for k in launches}
+                + parity_launches[k] + downlink_launches[k]
+                for k in launches}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel was never launched in phases 3, 5, 6 and 7: {launches}")
+          f"a kernel was never launched in phases 3, 5, 6, 7 and 8: "
+          f"{launches}")
 
     replaces = {
         "rrc": ("opticalimageprocessor_tpu_torch/csrc/rrc.cu",

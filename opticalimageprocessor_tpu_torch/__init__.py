@@ -1,6 +1,7 @@
 """opticalimageprocessor_tpu_torch -- the PyTorch/CUDA port for NVIDIA
-Hopper (H100) of the ``scene`` pipeline and of the file commands in fast
-mode (``prestitch``, the default registration + alignment, ``stitch``).
+Hopper (H100) of the ``scene`` pipeline and of the file commands
+(``auxsep``, on the host only; ``prestitch``, the default registration +
+alignment, ``stitch``).
 
 Plain tensor code is PyTorch; every kernel the JAX package wrote in Pallas
 for the TPU is a hand-written CUDA C++ kernel under ``csrc/``, built with
@@ -8,7 +9,9 @@ for the TPU is a hand-written CUDA C++ kernel under ``csrc/``, built with
 tensors take each kernel's plain PyTorch version.  The JAX package
 ``opticalimageprocessor_tpu`` stays the reference; this package imports
 nothing of it (its host modules -- constants, naming, the RRC CSV reader,
-RAW and TIFF IO, logging -- have copies here) and never imports jax.
+the AOS downlink formats and their separator, RAW and TIFF IO, logging,
+the native host library's bindings -- have copies here) and never imports
+jax.
 """
 
 __version__ = "0.1.0"

@@ -4,18 +4,24 @@ usage error / 2 runtime error / 1 unknown; reference main.cpp:320-343)
 plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions):
 
+* ``auxsep`` (downlink AUX/image separation, on the host only: it takes
+  no ``--device``);
 * the default action (inter-band registration + alignment) and
   ``prestitch``: the parity route (bit for bit ``cv::remap``, in either
-  ``--coord-mode``) or, with ``--fast``, the fast route; both refuse
-  ``--mesh`` and ``--profile``;
+  ``--coord-mode``) or, with ``--fast``, the fast route;
 * ``stitch`` (host concatenation of the CMOS halves);
 * ``scene`` (the whole scene on one device): takes every flag of the JAX
   CLI's ``scene`` and runs its checks; runs the resident route, or with
   ``--stream`` the streamed one, each with or without ``--mss2`` (the
-  whole sample-task workflow), and refuses ``--mesh`` and ``--profile``.
+  whole sample-task workflow).
 
-``auxsep`` is not ported yet.  The file workflow (docs/sample-task.sh)::
+``--profile DIR`` on the default action, ``prestitch`` and ``scene``
+writes a torch.profiler trace of the run into DIR.  ``--mesh`` (the
+multi-device route) is refused with 254.  The workflow of
+docs/sample-task.sh::
 
+    python -m opticalimageprocessor_tpu_torch.cli auxsep \
+        KASHI_TJ3-01_20220817_031259_1.dat
     python -m opticalimageprocessor_tpu_torch.cli prestitch \
         --pan1 CMOS1.PAN.RAW --pan2 CMOS2.PAN.RAW --rrc1 r1 --rrc2 r2
     python -m opticalimageprocessor_tpu_torch.cli --pan P.RAW \
@@ -65,23 +71,26 @@ def _print_stage_report() -> None:
         )
 
 
+_PROFILE_HELP = ("write a torch.profiler trace of the run (host activity, "
+                 "and the card's with a CUDA --device) to DIR")
+
+
 def _add_port_flags(p: argparse.ArgumentParser, what: str) -> None:
     """``--fast``, ``--mesh`` and ``--profile`` as the JAX CLI spells them
-    (the port refuses the last two), and ``--device``."""
+    (the port refuses ``--mesh``), and ``--device``."""
     p.add_argument("--fast", action="store_true", default=False,
                    help=f"fast-mode {what} over the whole strip (within 1 "
                         "DN of the default parity route's sections)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="multi-device route (not ported yet)")
     p.add_argument("--profile", default="", metavar="DIR",
-                   help="device profile (not ported yet)")
+                   help=_PROFILE_HELP)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
 
 
 _UNPORTED = {
     "--mesh": "the multi-device route",
-    "--profile": "the device profile",
 }
 
 
@@ -104,6 +113,7 @@ def _build_default_parser() -> argparse.ArgumentParser:
         ),
         epilog=(
             "subcommands (run 'oiptorch <subcommand> --help' for options): "
+            "auxsep (downlink AUX/image separation), "
             "prestitch (dual-CMOS stitch parameters + PAN2 correction), "
             "stitch (concatenate the CMOS halves), scene (the whole scene "
             "on one device)"
@@ -167,20 +177,40 @@ def _default_action(a) -> int:
     _require_file(a.rrc_pan, "--rrc-pan")
     for i, f in enumerate(rrc_mss, 1):
         _require_file(f, f"--rrc-msb{i}")
-    _refuse_flags(a, "--mesh", "--profile")
+    _refuse_flags(a, "--mesh")
 
     from .models.preprocessor import PreProcessor
+    from .utils.logging import device_profile
 
-    pp = PreProcessor(a.pan, a.mss, a.rrc_pan, rrc_mss, out_dir=a.out_dir,
-                      quantized_coords=a.coord_mode == "quantized",
-                      fast=a.fast, device=a.device)
-    pp.load_and_rrc(do_rrc_pan=a.do_rrc4pan, do_rrc_mss=a.do_rrc4mss)
-    if a.do_rrc4pan and a.write_rrcpan:
-        pp.write_rrc_pan_tiff(a.line_offset)
-    pp.calc_inter_band_correlation(a.slices, a.ibc_sections, a.ibc_threshold)
-    pp.do_inter_band_alignment(
-        a.lines_section, a.line_offset, a.overlap_lines, a.keep_leading
-    )
+    with device_profile(a.profile, a.device):
+        pp = PreProcessor(a.pan, a.mss, a.rrc_pan, rrc_mss,
+                          out_dir=a.out_dir,
+                          quantized_coords=a.coord_mode == "quantized",
+                          fast=a.fast, device=a.device)
+        pp.load_and_rrc(do_rrc_pan=a.do_rrc4pan, do_rrc_mss=a.do_rrc4mss)
+        if a.do_rrc4pan and a.write_rrcpan:
+            pp.write_rrc_pan_tiff(a.line_offset)
+        pp.calc_inter_band_correlation(a.slices, a.ibc_sections,
+                                       a.ibc_threshold)
+        pp.do_inter_band_alignment(
+            a.lines_section, a.line_offset, a.overlap_lines, a.keep_leading
+        )
+    return 0
+
+
+def _auxsep(argv) -> int:
+    p = argparse.ArgumentParser(prog="oiptorch auxsep",
+                                description="Do aux & image data separation")
+    p.add_argument("-O", "--offset", type=int, default=0,
+                   help="Parse AOS file from specified byte offset")
+    p.add_argument("file", help="AOS or IMDT file path")
+    p.add_argument("--out-dir", default=None)
+    a = p.parse_args(argv)
+    _require_file(a.file, "file")
+
+    from .models.auxsep import AuxSeparator
+
+    AuxSeparator(a.file, a.offset, out_dir=a.out_dir).separate()
     return 0
 
 
@@ -223,19 +253,21 @@ def _prestitch(argv) -> int:
     _require_file(a.pan2, "--pan2")
     _require_file(a.rrc1, "--rrc1")
     _require_file(a.rrc2, "--rrc2")
-    _refuse_flags(a, "--mesh", "--profile")
+    _refuse_flags(a, "--mesh")
 
     from .models.stitcher import Stitcher
+    from .utils.logging import device_profile
 
-    st = Stitcher(a.pan1, a.pan2, a.rrc1, a.rrc2, a.sections, a.section_lines,
-                  a.stitch_overlap, out_dir=a.out_dir,
-                  quantized_coords=a.coord_mode == "quantized",
-                  fast=a.fast, device=a.device)
-    st.calc_stt_parameters(a.stt_threshold, a.stt_maxdeltay, a.edge_cols)
-    if not a.only_calculate:
-        if a.do_rrc:
-            st.do_rrc()
-        st.pre_stitch()
+    with device_profile(a.profile, a.device):
+        st = Stitcher(a.pan1, a.pan2, a.rrc1, a.rrc2, a.sections,
+                      a.section_lines, a.stitch_overlap, out_dir=a.out_dir,
+                      quantized_coords=a.coord_mode == "quantized",
+                      fast=a.fast, device=a.device)
+        st.calc_stt_parameters(a.stt_threshold, a.stt_maxdeltay, a.edge_cols)
+        if not a.only_calculate:
+            if a.do_rrc:
+                st.do_rrc()
+            st.pre_stitch()
     return 0
 
 
@@ -321,7 +353,7 @@ def _scene(argv) -> int:
     p.add_argument("--stream-section-lines", type=int, default=4096,
                    help="PAN lines per streamed section (with --stream)")
     p.add_argument("--profile", default="", metavar="DIR",
-                   help="device profile (not ported yet)")
+                   help=_PROFILE_HELP)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     a = p.parse_args(argv)
@@ -346,7 +378,7 @@ def _scene(argv) -> int:
         *[(f"--rrc-m2b{i}", f) for i, f in enumerate(rrc_mss2, 1)],
     ):
         _require_file(f, opt)
-    _refuse_flags(a, "--mesh", "--profile")
+    _refuse_flags(a, "--mesh")
 
     kw = dict(
         mss2_file=a.mss2, rrc_mss2_files=rrc_mss2,
@@ -355,6 +387,7 @@ def _scene(argv) -> int:
         threshold=a.ibc_threshold, stt_threshold=a.stt_threshold,
         stt_max_delta_y=a.stt_maxdeltay, out_stitched=a.out,
         out_stitched_mss=a.out_mss, out_dir=a.out_dir, device=a.device,
+        profile_dir=a.profile,
     )
     if a.stream:
         from .models.scene_stream import run_scene_streamed
@@ -375,9 +408,8 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
         if argv and argv[0] == "auxsep":
-            raise UsageError("auxsep is not ported to the PyTorch package "
-                             "yet")
-        if argv and argv[0] == "prestitch":
+            rc = _auxsep(argv[1:])
+        elif argv and argv[0] == "prestitch":
             rc = _prestitch(argv[1:])
         elif argv and argv[0] == "stitch":
             rc = _stitch(argv[1:])

@@ -43,3 +43,6 @@ RRC_STEM_EXT = ".RRC"
 IBPA_STEM_EXT = ".ALIGNED"
 TIFF_FILE_EXT = ".TIFF"
 RAW_FILE_EXT = ".RAW"
+AUX_FILE_EXT = ".AUX"
+STEM_EXT_PAN = ".PAN"
+STEM_EXT_MSS = ".MSS"

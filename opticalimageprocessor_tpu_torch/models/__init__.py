@@ -1,3 +1,4 @@
 """The port's pipelines: the scene pipeline (``device_pipeline.ScenePipeline``,
-``scene.run_scene``) and the file commands' fast routes
-(``preprocessor.PreProcessor``, ``stitcher.Stitcher`` and ``stitch``)."""
+``scene.run_scene``), the file commands' routes (``preprocessor.PreProcessor``,
+``stitcher.Stitcher`` and ``stitch``) and the host-only downlink separation
+(``auxsep.AuxSeparator``)."""

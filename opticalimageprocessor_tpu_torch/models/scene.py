@@ -34,7 +34,7 @@ from ..formats.naming import build_output_file_path
 from ..formats.rrc_csv import load_rrc_params
 from ..io import raw as raw_io
 from ..io import tiff as tiff_io
-from ..utils.logging import logw, olog, stage
+from ..utils.logging import device_profile, logw, olog, stage
 
 from .device_pipeline import (
     ScenePipeline,
@@ -164,7 +164,15 @@ def scene_pipeline(rrc_pan1, rrc_pan2, rrc_mss_files, pixels_per_line,
     )
 
 
-def run_scene(
+def run_scene(*args, profile_dir: str = "", **kw):
+    """Run the scene pipeline (see :func:`_run_scene`); with
+    ``profile_dir`` the whole run is wrapped in a torch.profiler trace
+    (utils.logging.device_profile)."""
+    with device_profile(profile_dir, kw.get("device", "cuda")):
+        return _run_scene(*args, **kw)
+
+
+def _run_scene(
     pan1_file: str,
     pan2_file: str,
     mss_file: str,

@@ -54,7 +54,7 @@ from ..io import raw as raw_io
 from ..io import tiff as tiff_io
 from ..io.raw import RawStrip
 from ..io.streaming import HostDeviceCopies, window
-from ..utils.logging import olog, stage
+from ..utils.logging import device_profile, olog, stage
 from .device_pipeline import (
     MssAlign,
     ScenePipeline,
@@ -255,7 +255,15 @@ def transform_mss2_streamed(align: MssAlign, ms2: RawStrip, cx, cy,
     return n
 
 
-def run_scene_streamed(
+def run_scene_streamed(*args, profile_dir: str = "", **kw):
+    """Run the streamed scene (see :func:`_run_scene_streamed`); with
+    ``profile_dir`` the whole run is wrapped in a torch.profiler trace
+    (utils.logging.device_profile)."""
+    with device_profile(profile_dir, kw.get("device", "cuda")):
+        return _run_scene_streamed(*args, **kw)
+
+
+def _run_scene_streamed(
     pan1_file: str,
     pan2_file: str,
     mss_file: str,

@@ -1,1 +1,2 @@
-"""Host utilities of the port (logging and stage timing, native LZW)."""
+"""Host utilities of the port (logging, stage timing and the profiler
+trace; the native host library's downlink scan and LZW)."""

@@ -1,10 +1,12 @@
-"""TIFF-flavour LZW through the repository's native host library
+"""ctypes bindings of the repository's native host library
 (``native/oipnative.cpp``, built by ``native/build.sh`` into
-``native/liboipnative.so``), with a pure-python decoder when the library is
-missing.
+``native/liboipnative.so``): the downlink scan's CRC sweeps, signature
+search, block gathers, 16-bit byte swap and single-pass AOS scan, and
+TIFF-flavour LZW.  Every entry point has a numpy (or pure-python) route for
+when the library is missing; ``native_available()`` says which is active.
 
-Copied from ``opticalimageprocessor_tpu/utils/native.py`` (the LZW entry
-points only).
+Copied from ``opticalimageprocessor_tpu/utils/native.py`` (without
+``deinterleave_bands``, which the port does on the device).
 """
 
 from __future__ import annotations
@@ -37,6 +39,36 @@ def _load():
     if os.path.exists(path):
         try:
             lib = ctypes.CDLL(path)
+            lib.oip_crc16_many.restype = None
+            lib.oip_crc16_many.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p,
+            ]
+            lib.oip_find_signatures.restype = ctypes.c_int64
+            lib.oip_find_signatures.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ]
+            lib.oip_gather_blocks.restype = None
+            lib.oip_gather_blocks.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p,
+            ]
+            lib.oip_byteswap16.restype = None
+            lib.oip_byteswap16.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+            if hasattr(lib, "oip_scan_aos"):
+                lib.oip_scan_aos.restype = ctypes.c_int64
+                lib.oip_scan_aos.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int64,               # buf, n
+                    ctypes.c_void_p, ctypes.c_int64,               # sync
+                    ctypes.c_int64,                                # frame
+                    ctypes.c_int64, ctypes.c_uint8, ctypes.c_uint8,
+                    ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+                    ctypes.c_int64, ctypes.c_int64,                # hdr, crc
+                    ctypes.c_int64, ctypes.c_int64,                # data
+                    ctypes.c_void_p, ctypes.c_void_p,              # out
+                    ctypes.c_void_p,                               # counts
+                ]
             lib.oip_lzw_encode.restype = ctypes.c_int64
             lib.oip_lzw_encode.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -53,6 +85,123 @@ def _load():
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def crc16_many(base: np.ndarray, offsets: np.ndarray, frame_len: int) -> np.ndarray:
+    """Batch CRC-16/CCITT-FALSE at byte ``offsets`` into ``base``."""
+    lib = _load()
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if lib is not None and base.flags["C_CONTIGUOUS"]:
+        out = np.empty(offsets.shape[0], dtype=np.uint16)
+        lib.oip_crc16_many(
+            base.ctypes.data, offsets.ctypes.data, offsets.shape[0],
+            frame_len, out.ctypes.data,
+        )
+        return out
+    from ..formats.crc16 import crc16_ccitt_false_many
+
+    idx = offsets[:, None] + np.arange(frame_len)[None, :]
+    return crc16_ccitt_false_many(base[idx])
+
+
+def find_signatures(buf: np.ndarray, sig: bytes) -> np.ndarray:
+    """All offsets of ``sig`` in ``buf`` (uint8 1-D)."""
+    lib = _load()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if lib is not None:
+        hits = []
+        cap = 1 << 20
+        out = np.empty(cap, dtype=np.int64)
+        sig_arr = np.frombuffer(sig, dtype=np.uint8)
+        start = 0
+        while True:
+            n = lib.oip_find_signatures(
+                buf.ctypes.data + start, buf.shape[0] - start,
+                sig_arr.ctypes.data, len(sig), out.ctypes.data, cap,
+            )
+            hits.append(out[:n] + start)
+            if n < cap:
+                break
+            start = int(hits[-1][-1]) + 1
+        return np.concatenate(hits) if hits else np.zeros(0, np.int64)
+    from ..formats.aos import find_signatures as np_find
+
+    return np_find(buf, sig)
+
+
+def gather_blocks(base: np.ndarray, offsets: np.ndarray, block_len: int) -> np.ndarray:
+    """Gather fixed-size byte blocks at arbitrary offsets -> (n, block_len)."""
+    lib = _load()
+    base = np.ascontiguousarray(base, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    out = np.empty((offsets.shape[0], block_len), np.uint8)
+    if lib is not None:
+        lib.oip_gather_blocks(
+            base.ctypes.data, offsets.ctypes.data, offsets.shape[0],
+            block_len, out.ctypes.data,
+        )
+        return out
+    for i, o in enumerate(offsets.tolist()):
+        out[i] = base[o : o + block_len]
+    return out
+
+
+def byteswap16(data: np.ndarray) -> np.ndarray:
+    """In-place 16-bit byteswap; returns the array."""
+    lib = _load()
+    if lib is not None and data.flags["C_CONTIGUOUS"] and data.dtype == np.uint16:
+        lib.oip_byteswap16(data.ctypes.data, data.size)
+        return data
+    data[...] = data.byteswap()
+    return data
+
+
+def scan_aos(buf: np.ndarray, out: np.ndarray | None = None):
+    """Single-pass native AOS scan (oip_scan_aos): sync memmem +
+    VCID/injection/CRC validation + payload extraction in one sweep of the
+    chunk.
+
+    ``out`` is an optional reusable payload buffer (capacity >=
+    ``(len(buf)//1024 + 1) * 880`` bytes), so a chunked caller page-faults
+    the large allocation once, not per chunk.  The returned payload view
+    aliases ``out``: consume it before the next call.
+
+    Returns (payload (n_valid, 880) u8, n_valid, n_empty, n_invalid,
+    cursor), or None when the native library is unavailable; callers then
+    take formats.aos.scan_aos_frames + extract_aos_payloads (the same
+    results).
+    """
+    lib = _load()
+    if lib is None or not hasattr(lib, "oip_scan_aos"):
+        return None
+    from ..formats import aos
+
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    n = buf.shape[0]
+    cap = (n // aos.AOS_FRAME_BYTES + 1) * aos.AOS_DATA_BYTES
+    if out is not None and out.size >= cap:
+        payload = out
+    else:
+        payload = np.empty(cap, np.uint8)
+    nbytes = np.zeros(1, np.int64)
+    counts = np.zeros(3, np.int64)
+    sync = np.frombuffer(aos.SYNC_BYTES, np.uint8)
+    cursor = lib.oip_scan_aos(
+        buf.ctypes.data, n, sync.ctypes.data, len(aos.SYNC_BYTES),
+        aos.AOS_FRAME_BYTES,
+        aos.AOS_VCID_OFF, aos.AOS_VCID_MASK, aos.AOS_VCID_EMPTY,
+        aos.AOS_VCDUINJ_OFF, aos.AOS_VCDUINJ_VALID, aos.AOS_VCDUINJ_INVAL,
+        aos.AOS_HEADER_OFF, aos.AOS_CRC_OFF,
+        aos.AOS_DATA_OFF, aos.AOS_DATA_BYTES,
+        payload.ctypes.data, nbytes.ctypes.data, counts.ctypes.data,
+    )
+    n_valid = int(counts[0])
+    return (
+        payload[: n_valid * aos.AOS_DATA_BYTES].reshape(
+            n_valid, aos.AOS_DATA_BYTES
+        ),
+        n_valid, int(counts[1]), int(counts[2]), int(cursor),
+    )
 
 
 def lzw_encode(data: bytes | np.ndarray) -> bytes | None:

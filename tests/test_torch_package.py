@@ -23,6 +23,8 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.cli",
     "opticalimageprocessor_tpu_torch.constants",
     "opticalimageprocessor_tpu_torch.formats",
+    "opticalimageprocessor_tpu_torch.formats.aos",
+    "opticalimageprocessor_tpu_torch.formats.crc16",
     "opticalimageprocessor_tpu_torch.formats.naming",
     "opticalimageprocessor_tpu_torch.formats.rrc_csv",
     "opticalimageprocessor_tpu_torch.io",
@@ -30,6 +32,7 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.io.streaming",
     "opticalimageprocessor_tpu_torch.io.tiff",
     "opticalimageprocessor_tpu_torch.models",
+    "opticalimageprocessor_tpu_torch.models.auxsep",
     "opticalimageprocessor_tpu_torch.models.device_pipeline",
     "opticalimageprocessor_tpu_torch.models.preprocessor",
     "opticalimageprocessor_tpu_torch.models.scene",

@@ -190,10 +190,11 @@ def test_parity_route_is_refused(scene):
 @pytest.mark.parametrize("case", ["no_fast", "mesh", "profile",
                                   "orphan_rrc_pan", "missing_mss",
                                   "bad_threshold", "missing_band_rrc"])
-def test_cli_usage_errors(scene, case):
+def test_cli_usage_errors(scene, case, tmp_path):
     """Usage errors give 254; without ``--fast`` (the parity route, which
-    once gave 254) the JAX CLI's rc for the same argv: 2, the camera width
-    does not divide this scene's files."""
+    once gave 254) and with ``--profile`` (once refused with 254) the JAX
+    CLI's rc for the same argv: 2, the camera width does not divide this
+    scene's files."""
     _, files = scene
     base = ["--pan", files["pan"], "--mss", files["mss"], "--device", "cpu"]
     for b in range(1, 5):
@@ -201,7 +202,7 @@ def test_cli_usage_errors(scene, case):
     argv = {
         "no_fast": base,
         "mesh": base + ["--fast", "--mesh", "8"],
-        "profile": base + ["--fast", "--profile", "prof"],
+        "profile": base + ["--fast", "--profile", str(tmp_path / "prof")],
         "orphan_rrc_pan": base + ["--fast", "--rrc-pan", files["rrc_pan"]],
         "missing_mss": ["--fast", "--pan", files["pan"], "--mss", "/nope",
                         "--no-rrc4mss"],
@@ -212,6 +213,8 @@ def test_cli_usage_errors(scene, case):
     if case == "no_fast":
         i = argv.index("--device")
         assert cli.main(argv) == jcli.main(argv[:i] + argv[i + 2:]) == 2
+    elif case == "profile":
+        assert cli.main(argv) == 2
     else:
         assert cli.main(argv) == 254
 

@@ -139,8 +139,9 @@ def test_chunked_equals_whole(chunk, quantized, rng, monkeypatch):
 @pytest.fixture(scope="module")
 def golden_band(tmp_path_factory):
     """Band 1 of the golden downlink's MSS (256 x 3072), separated by the
-    JAX package's AuxSeparator as tests/test_golden.py does."""
-    from opticalimageprocessor_tpu.models.auxsep import AuxSeparator
+    port's AuxSeparator (tests/test_torch_auxsep.py holds it byte-equal to
+    the JAX package's)."""
+    from opticalimageprocessor_tpu_torch.models.auxsep import AuxSeparator
 
     with open(os.path.join(GOLDEN, "expected.json")) as f:
         expected = json.load(f)

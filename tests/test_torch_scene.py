@@ -3,6 +3,7 @@ JAX package's run_scene on the same RAW files and RRC CSVs, with CMOS2's
 MSS (``mss2_file``: the whole sample-task workflow)."""
 
 import functools
+import glob
 import os
 
 import numpy as np
@@ -318,12 +319,14 @@ def test_cli_scene_stream_mss2_runs_at_camera_width(wide_scene):
 ])
 def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
     """Usage errors exit 254 before any work, with the JAX CLI's checks and
-    messages; the JAX flags the port does not run yet (``--mesh``,
-    ``--profile``) are refused by name.  The runtime checks of ``--mss2``
-    and ``--stream`` (a non-TIFF stitched MSS, section lines that are no
-    multiple of 4) exit 2 before any device work."""
+    messages; the JAX flag the port does not run yet (``--mesh``) is
+    refused by name.  The runtime checks of ``--mss2`` and ``--stream`` (a
+    non-TIFF stitched MSS, section lines that are no multiple of 4) exit 2
+    before any device work.  ``--profile``, once refused, gives the JAX
+    CLI's rc for the same argv (0) and writes one trace."""
     d, files = wide_scene
     nope = os.path.join(d, "nope.RAW")
+    prof = os.path.join(d, "prof")
     extra, rc, said = {
         "fold_too_small": (["-c", "1"], 254, "fold column value too small"),
         "missing_pan1": ([], 254, f"--pan1: File does not exist: {nope}"),
@@ -333,7 +336,7 @@ def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
         "mesh": (["--mesh", "2"], 254, "--mesh: the multi-device route"),
         "stream": (["--stream", "--stream-section-lines", "130"], 2,
                    "section_rows must be a multiple of 4"),
-        "profile": (["--profile", d], 254, "--profile: the device profile"),
+        "profile": (["--profile", prof], 0, ""),
         "rrc_m2b_needs_mss2": (["--rrc-m2b1", files["rrc_msb1"]], 254,
                                "--rrc-m2b* needs --mss2"),
         "out_mss_needs_mss2": (["--out-mss", os.path.join(d, "M.TIFF")], 254,
@@ -349,6 +352,8 @@ def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
     assert cli.main(_argv(f, d, *extra)) == rc
     if rc == 254:
         assert f"USAGE ERROR: {said}" in capsys.readouterr().out
+    elif rc == 0:
+        assert len(glob.glob(os.path.join(prof, "*.pt.trace.json"))) == 1
     else:
         assert f"{said}." in caplog.text
         # failed before the strips were opened
