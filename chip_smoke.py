@@ -78,10 +78,24 @@ Phases (any failure exits non-zero and prints no result line):
    from the profile's trace the kernel events of (a) and (c), the stage
    spans, and the h2d / d2h / kernel ms and their union; the golden
    downlinks of tests/golden through ``auxsep`` (the JPEG2000 one gives
-   rc 2 with the JAX package's diagnostic where no codec imports).
+   rc 2 with the JAX package's diagnostic where no codec imports);
+9. the line mesh (``--mesh``), as N shards on the one card
+   (``LineMesh([cuda:0] * 4)``): after phase 4, the sharded scene and
+   MSS2 align through the module API at 32780 lines (uneven shards), the
+   estimates within 1e-5 px (fit) and 1e-3 px (stt) of the resident
+   route's and, pinned, every raster byte for byte the resident one, one
+   sharded forward's ms and peak memory beside the resident forward's;
+   after phase 5, ``run_sharded_align`` (both ``--coord-mode``s) and
+   ``run_sharded_prestitch`` on its files, 4 shards and 1 byte for byte
+   alike, 0 DN against the plain staged remap (continuous, the prestitch)
+   and against the cv::remap oracle at every shard seam (quantized), and
+   ``prestitch --mesh 1`` / the default ``--mesh 1`` through ``cli.main``;
+   after phase 6, ``scene --mesh 1 --mss2`` and ``scene --stream --mesh 1
+   --mss2`` at phase 6's SHA-256, ``scene --mesh 2`` refused on one card
+   (rc 2), and a partial ``OIP_DIST_*`` env refused in a subprocess.
 
 The last two lines of standard output are the kernels' JSON record
-(launches over phases 3, 5, 6, 7 and 8, error, kernel, plain and bound ms at
+(launches over phases 3, 5, 6, 7, 8 and 9, error, kernel, plain and bound ms at
 phase 2's shapes, plus the scene shapes' ms and bound for (b) and (d), the
 streamed section's for (d), the file commands' and MSS2's shapes' ms and
 bound for (c), and each of (e)'s shapes' ms and bound) and
@@ -189,6 +203,46 @@ def stitch_bound(rows, width, fold, want_prestt=False) -> dict:
     float64 parameter rows."""
     return bound(2 * 2 * rows * width + 2 * rows * 2 * (width - fold)
                  + (2 * rows * width if want_prestt else 0) + 4 * 8 * width)
+
+
+def crosspower_vs_plain(tag, kargs, packed, M, N, win_y, win_x):
+    """Kernel (b) against ``_crosspower_plain`` on the same operands
+    ``kargs`` (fpan, fband, hr, hc, ex_c, ex_s): the peaks within 1e-3 px
+    and 1e-4 of response, the surfaces within 1e-4 relative.  -> (max |d
+    shift| px, max |d response|, surface rel err, window rel err, the
+    kernel's peaks)."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.ops import phasecorr
+    from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
+
+    dr_k, di_k = pcc._crosspower_cuda(*kargs, packed)
+    dr_p, di_p = pcc._crosspower_plain(*kargs)
+    torch.cuda.synchronize()
+    corr_k = phasecorr.contract_rows(dr_k, di_k, M, N, win_y)
+    corr_p = phasecorr.contract_rows(dr_p, di_p, M, N, win_y)
+    peak_k = phasecorr._centroid_on_window(corr_k, win_y, win_x)
+    peak_p = phasecorr._centroid_on_window(corr_p, win_y, win_x)
+    d_shift = max(float((peak_k[i] - peak_p[i]).abs().max()) for i in (0, 1))
+    d_resp = float((peak_k[2] - peak_p[2]).abs().max())
+    # every (tile, band, ky, window column) of the kernel's output, real and
+    # imaginary, and the whole contracted 129 x 129 window, relative to the
+    # plain version's largest magnitude: a column block or a share of the
+    # kx sum that the kernel got wrong shows here even away from the peak
+    # (one zeroed window column, or kx >= 512 left out of the sum, reads
+    # 0.12-0.17 on a 1-tile 4000 x 1228 case; the kernel reads ~2e-6)
+    surf = max(float((k - p).abs().max() / p.abs().max())
+               for k, p in ((dr_k, dr_p), (di_k, di_p)))
+    window = float((corr_k - corr_p).abs().max() / corr_p.abs().max())
+    say(f"{tag}: max |d shift| {d_shift:.3g} px, |d response| "
+        f"{d_resp:.3g}, surface rel err {surf:.3g}, window rel err "
+        f"{window:.3g}; dx {peak_k[0].tolist()} dy {peak_k[1].tolist()} "
+        f"resp {peak_k[2].tolist()}")
+    check(d_shift <= 1e-3 and d_resp <= 1e-4, f"{tag}: peaks vs plain")
+    check(surf <= 1e-4 and window <= 1e-4,
+          f"{tag}: surface {surf:.3g} / window {window:.3g} vs plain "
+          "above 1e-4")
+    return d_shift, d_resp, surf, window, peak_k
 
 
 def dn_diff(a, b):
@@ -306,32 +360,8 @@ def phase_kernels(dev, records):
     ex_c, ex_s = phasecorr.eval_consts(N, keep, win, False, dev)
     kargs = (fpan, fband, hr, hc, ex_c, ex_s)
     packed = pcc.packed_eval_operands(N, keep, win, dev)
-    dr_k, di_k = pcc._crosspower_cuda(*kargs, packed)
-    dr_p, di_p = pcc._crosspower_plain(*kargs)
-    torch.cuda.synchronize()
-    corr_k = phasecorr.contract_rows(dr_k, di_k, M, N, win)
-    corr_p = phasecorr.contract_rows(dr_p, di_p, M, N, win)
-    peak_k = phasecorr._centroid_on_window(corr_k, win, win)
-    peak_p = phasecorr._centroid_on_window(corr_p, win, win)
-    d_shift = max(float((peak_k[i] - peak_p[i]).abs().max()) for i in (0, 1))
-    d_resp = float((peak_k[2] - peak_p[2]).abs().max())
-    # every (tile, band, ky, window column) of the kernel's output, real and
-    # imaginary, and the whole contracted 129 x 129 window, relative to the
-    # plain version's largest magnitude: a column block or a share of the
-    # kx sum that the kernel got wrong shows here even away from the peak
-    # (one zeroed window column, or kx >= 512 left out of the sum, reads
-    # 0.12-0.17 on a 1-tile 4000 x 1228 case; the kernel reads ~2e-6)
-    surf = max(float((k - p).abs().max() / p.abs().max())
-               for k, p in ((dr_k, dr_p), (di_k, di_p)))
-    window = float((corr_k - corr_p).abs().max() / corr_p.abs().max())
-    say(f"[b] crosspower: max |d shift| {d_shift:.3g} px, |d response| "
-        f"{d_resp:.3g}, surface rel err {surf:.3g}, window rel err "
-        f"{window:.3g}; dx {peak_k[0].tolist()} dy {peak_k[1].tolist()} "
-        f"resp {peak_k[2].tolist()}")
-    check(d_shift <= 1e-3 and d_resp <= 1e-4, "crosspower peaks vs plain")
-    check(surf <= 1e-4 and window <= 1e-4,
-          f"crosspower surface {surf:.3g} / window {window:.3g} vs plain "
-          "above 1e-4")
+    d_shift, d_resp, surf, window, peak_k = crosspower_vs_plain(
+        "[b] crosspower", kargs, packed, M, N, win, win)
     check(bool((peak_k[2] >= 0.4).all()), "crosspower responses below 0.4")
     wx = 2 * win + 1
     records["crosspower"] = dict(
@@ -342,7 +372,7 @@ def phase_kernels(dev, records):
         shape="T=2 tiles x 4 bands, M=16000 keep=615 m=4000 n=307 win=64",
         **crosspower_bound(2, 4, M, keep, m, n, wx),
     )
-    del fpan, fband, dr_k, di_k, dr_p, di_p, pan, bands
+    del fpan, fband, pan, bands
     torch.cuda.empty_cache()
     say(f"[b] {records['crosspower']}")
     # the scene's shape: 20 tiles (2 sections x 10 slices of a 32768-line
@@ -851,8 +881,10 @@ def phase_cli(dev, tmp: Path, lines: int = 16384):
 # phase 4: the resident pipeline at 32768 lines
 # ---------------------------------------------------------------------------
 
-def plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx, raw_dy):
-    """ScenePipeline.transform through the kernels' plain versions."""
+def plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx, raw_dy,
+                    want_prestt=False):
+    """ScenePipeline.transform through the kernels' plain versions: ->
+    (aligned, stitched[, prestt])."""
     import torch
 
     from opticalimageprocessor_tpu_torch.ops import resample, rrc
@@ -866,7 +898,9 @@ def plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx, raw_dy):
     stitched = resample._stitch_tail_plain(
         pan1, pan2, pipe.pan1_k, pipe.pan1_b, pipe.pan2_k, pipe.pan2_b,
         float(np.float32(dxs)), float(np.float32(dys)), pipe.fold,
-        pipe.col_block, pipe.col_halo, False)
+        pipe.col_block, pipe.col_halo, want_prestt)
+    if want_prestt:
+        return (aligned, *stitched)
     return aligned, stitched
 
 
@@ -1287,6 +1321,9 @@ def phase_stream(dev, power, tmp: Path, lines: int = 34816,
     del got, prestt
     torch.cuda.empty_cache()
     say("[stream] PRESTT.RAW == ScenePipeline(return_prestt=True)'s prestt")
+    # phase 9 runs the same scene with --mesh 1 against these
+    shas = {name: sha256_file(outs["stream"] / name)
+            for name in SCENE_OUTPUTS + ("PAN2.PRESTT.RAW",)}
     shutil.rmtree(outs["stream"])
 
     def streamed(out):
@@ -1338,7 +1375,7 @@ def phase_stream(dev, power, tmp: Path, lines: int = 34816,
     say(f"[stream] {json.dumps(res)}")
     launches = {k: res["stream_launches"][k] + res["resident_launches"][k]
                 for k in res["stream_launches"]}
-    return launches
+    return launches, shas
 
 
 # ---------------------------------------------------------------------------
@@ -2178,6 +2215,498 @@ def phase_downlink(dev, power, tmp: Path, want: dict, lines: int = 16384,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the line mesh (--mesh), N shards on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+
+
+def _line_mesh(dev, n=MESH_SHARDS):
+    from opticalimageprocessor_tpu_torch.parallel.mesh import LineMesh
+
+    return LineMesh([dev] * n)
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after: -> (its result, the launches)."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
+
+
+def _sum_launches(*runs):
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
+def _fit_diff(a, b, width):
+    """The largest difference of two sets of fitted polynomials (rows of
+    ascending coefficients) over the strip's columns, in px."""
+    xs = np.arange(0.0, width + 1, 64.0)
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    worst = 0.0
+    for ca, cb in zip(a, b):
+        d = sum((ca[k] - cb[k]) * xs**k for k in range(ca.size))
+        worst = max(worst, float(np.abs(d).max()))
+    return worst
+
+
+def phase_mesh_scene(dev, power, lines: int = 32768 + 12):
+    """The sharded scene through the module API on ``LineMesh([dev] * 4)``
+    at 32780 lines (PAN shards of 8196, 8196, 8196 and 8192 rows): its
+    estimates against the resident ScenePipeline's (fit within 1e-5 px,
+    stt within 1e-3 px), kernel (b) on the first device's block of tiles
+    against its plain version, with the resident estimates pinned its
+    aligned, stitched and prestt rasters byte for byte the resident ones
+    and the plain versions' (kernels (a), (c), (d) at the shard windows'
+    shapes), the sharded MSS2 align (estimates within 1e-5 px; pinned,
+    aligned2 byte for byte the resident one and the plain one at row bound
+    6), its launches, and one sharded forward's CUDA-event ms and peak
+    device memory beside the resident forward's."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
+    from opticalimageprocessor_tpu_torch.models.device_pipeline import (
+        MssAlign,
+        ScenePipeline,
+        check_registration_valid,
+        check_stt_valid,
+    )
+    from opticalimageprocessor_tpu_torch.ops import phasecorr, resample, rrc
+    from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
+    from opticalimageprocessor_tpu_torch.ops.rrc import rrc_apply
+    from opticalimageprocessor_tpu_torch.parallel.sharded import (
+        ingest_line_sharded,
+        tile_blocks,
+    )
+    from opticalimageprocessor_tpu_torch.parallel.sharded_scene import (
+        ShardedMssAlign,
+        ShardedScene,
+    )
+
+    rng = np.random.default_rng(SEED + 9)
+    pan1, pan2, mss, mss2 = synth_scene(torch, rng, lines, dev, mss2=True)
+    pipe = ScenePipeline(
+        rand_params(rng, W), rand_params(rng, W), rand_params(rng, 4, BW),
+        fold=FOLD_COLS // 2, overlap_cols=FOLD_COLS, return_prestt=True,
+    ).to(dev)
+    align = MssAlign(rand_params(rng, 4, BW)).to(dev)
+    mesh = _line_mesh(dev)
+    scene = ShardedScene(pipe, mesh)
+    malign = ShardedMssAlign(align, mesh)
+    # the resident route (its launches are not the mesh's)
+    est = pipe.estimate(pan1, pan2, mss)
+    check_registration_valid(est[2].cpu())
+    check_stt_valid(est[5])
+    outs = pipe.transform(pan1, pan2, mss, *est[:2], *est[3:5])
+    al2, nv2, (cx2, cy2) = align(outs[2], mss2)
+    shards = (ingest_line_sharded(mesh, pan1, 0, 4),
+              ingest_line_sharded(mesh, pan2, 0, 4),
+              ingest_line_sharded(mesh, mss, 1))
+    m2s = ingest_line_sharded(mesh, mss2, 1)
+    res = {"lines": lines, "shards": MESH_SHARDS, "card": power,
+           "pan_shard_rows": [b - a for a, b in map(shards[0].bounds,
+                                                    range(MESH_SHARDS))]}
+
+    # the first device's block of registration tiles, as kernel (b) gets it
+    blocks = []
+    real_wcf = dp.windowed_crosspower_fused_tiles
+
+    def spy_wcf(*args):
+        if not blocks:
+            blocks.append(args)
+        return real_wcf(*args)
+
+    dp.windowed_crosspower_fused_tiles = spy_wcf
+    try:
+        est_s, l_est = _counted(lambda: scene.estimate(*shards))
+    finally:
+        dp.windowed_crosspower_fused_tiles = real_wcf
+    res["fit_diff_px"] = max(_fit_diff(est_s[k].cpu(), est[k].cpu(), W)
+                             for k in (0, 1))
+    res["stt_diff_px"] = max(abs(float(est_s[k]) - float(est[k]))
+                             for k in (3, 4))
+    say(f"[mesh] sharded estimate vs resident: fit {res['fit_diff_px']:.3g} "
+        f"px, stt {res['stt_diff_px']:.3g} px; launches {l_est}")
+    check(torch.equal(est_s[2], est[2]) and int(est_s[5]) == int(est[5]),
+          "sharded valid counts != resident")
+    check(res["fit_diff_px"] <= 1e-5 and res["stt_diff_px"] <= 1e-3,
+          "sharded estimates beyond 1e-5 px (fit) / 1e-3 px (stt)")
+    # kernel (b) on that block against its plain version
+    fpan, fband, (M, N), m_small, win_y, win_x = blocks.pop()
+    geom = dp.register_geometry(lines, W, pipe.slices, pipe.n_sections)
+    t0, t1 = tile_blocks(geom.n_sections * geom.slices, MESH_SHARDS)[0]
+    res["tile_block"] = list(fpan.shape[:1]) + [t1 - t0]
+    check(fpan.shape[0] == t1 - t0 < geom.n_sections * geom.slices,
+          f"kernel (b)'s first block holds {fpan.shape[0]} tiles, not "
+          f"{t1 - t0}")
+    keep = fpan.shape[-1]
+    kargs = (fpan, fband, phasecorr.filter_response(m_small, M // m_small,
+                                                    dev),
+             phasecorr.filter_response(fband.shape[-1], M // m_small,
+                                       dev)[:keep],
+             *phasecorr.eval_consts(N, keep, win_x, False, dev))
+    res["block_crosspower_max_abs_err"] = crosspower_vs_plain(
+        f"[mesh] (b) on a {fpan.shape[0]}-tile block", kargs,
+        pcc.packed_eval_operands(N, keep, win_x, dev), M, N, win_y,
+        win_x)[0]
+    del fpan, fband, kargs
+
+    outs_s, l_tr = _counted(lambda: scene.transform(*shards, *est[:2],
+                                                    *est[3:5]))
+    # the kernels at the shards' window shapes, held to their plain
+    # versions over the whole strip: kernels (a), (c), (d) a shard at 0 DN
+    plain = plain_transform(pipe, pan1, pan2, mss, *est[:2], *est[3:5],
+                            want_prestt=True)
+    for name, got, want, want_p in zip(("aligned", "stitched", "prestt"),
+                                       outs_s, outs, plain):
+        got = got.gather(dev)
+        check(torch.equal(got, want),
+              f"sharded {name} != resident (pinned estimates)")
+        dmax, share = dn_diff(got, want_p)
+        check(dmax == 0, f"sharded {name} vs plain: max {dmax} DN on "
+              f"{share:.4%}")
+    del plain, got, want, want_p
+    say("[mesh] pinned: sharded aligned, stitched, prestt == resident == "
+        f"plain byte for byte; launches {l_tr}")
+
+    (al2_s, nv2_s, (cx2_s, cy2_s)), l_m2 = _counted(
+        lambda: malign(outs_s[2], m2s))
+    res["mss2_fit_diff_px"] = max(_fit_diff(cx2_s.cpu(), cx2.cpu(), W),
+                                  _fit_diff(cy2_s.cpu(), cy2.cpu(), W))
+    check(torch.equal(nv2_s, nv2) and res["mss2_fit_diff_px"] <= 1e-5,
+          f"sharded MSS2 estimates {res['mss2_fit_diff_px']} px off")
+    mss2_c = m2s.map(lambda t, d: rrc_apply(t, align.mss_k, align.mss_b))
+    al2_pin, l_pin = _counted(lambda: malign.remap(mss2_c, cx2, cy2))
+    al2_pin = al2_pin.gather(dev)
+    check(torch.equal(al2_pin, al2),
+          "sharded aligned2 != resident (pinned estimates)")
+    f32 = torch.float32
+    al2_p = resample._remap_bands_plain(
+        rrc._rrc_plain(mss2, align.mss_k, align.mss_b),
+        torch.as_tensor(cx2, dtype=f32, device=dev),
+        torch.as_tensor(cy2, dtype=f32, device=dev), align.row_bound,
+        resample.col_block_size(BW, align.col_block), align.col_halo)
+    dmax, share = dn_diff(al2_pin, al2_p)
+    check(dmax == 0, f"sharded aligned2 vs plain (row bound "
+          f"{align.row_bound}): max {dmax} DN on {share:.4%}")
+    del al2_p
+    say(f"[mesh] MSS2: fit {res['mss2_fit_diff_px']:.3g} px off; pinned "
+        f"aligned2 == resident == plain (row bound {align.row_bound}) byte "
+        f"for byte; launches {l_m2} + {l_pin}")
+    launches = _sum_launches(l_est, l_tr, l_m2, l_pin)
+    check(all(launches[k] > 0 for k in
+              ("rrc", "crosspower", "remap_band", "stitch_tail"))
+          and launches["row_pass"] == 0,
+          f"the sharded scene did not launch (a)-(d): {launches}")
+    check(l_tr["stitch_tail"] == MESH_SHARDS
+          and l_tr["remap_band"] == MESH_SHARDS,
+          f"the sharded transform's (c) / (d) launches {l_tr}, not one a "
+          "shard")
+    del outs, outs_s, al2, al2_s, al2_pin, mss2_c
+    torch.cuda.empty_cache()
+
+    def resident():
+        return int(pipe(pan1, pan2, mss)[0][0, 0, 0])      # forced readback
+
+    def sharded():
+        return int(scene(*shards)[0].shards[0][0, 0, 0])
+
+    for name, fn in (("resident", resident), ("sharded", sharded)):
+        _, res[f"{name}_forward_peak_gb"] = _peak_gb(fn)
+        torch.cuda.empty_cache()
+        res[f"{name}_forward_ms"] = time_ms(fn, 3)
+    res["note"] = ("4 shards on one card: the sharded forward's ms is the "
+                   "cost of sharding (halo and tile copies, 4x the "
+                   "launches), not a speed-up")
+    say(f"[mesh] {json.dumps(res)}")
+    return launches
+
+
+def _plain_staged(src, cx, cy, row_bound):
+    """The staged fast remap (ops/resample.remap_band_fast) of a whole
+    (rows, W) uint16 strip on its device with the plain vertical pass
+    (_fast_row_pass_plain) in place of kernel (e)."""
+    import torch
+    import torch.nn.functional as F
+
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    rows, width = src.shape
+    dev = src.device
+    cx = torch.as_tensor(np.asarray(cx, np.float32)).to(dev)
+    cy = torch.as_tensor(np.asarray(cy, np.float32)).to(dev)
+    tap0, w = resample._col_taps(cx, width,
+                                 resample.col_block_size(width, None),
+                                 resample.COL_HALO)
+    colg = resample._col_interp(src.to(torch.float32), tap0, w)
+    cu = resample._row_pass_coeffs(resample._band_g(cy, width), row_bound)
+    padded = F.pad(colg, (0, 0, row_bound + 1, row_bound + 2))
+    del colg
+    return resample._round_u16(
+        resample._fast_row_pass_plain(padded, cu, rows))
+
+
+def phase_mesh_files(dev, tmp: Path, lines: int = 16384):
+    """The sharded file routes on phase 5's 16384-line files (``tmp``):
+    ``run_sharded_align`` in both ``--coord-mode``s and
+    ``run_sharded_prestitch`` through the module API on ``LineMesh([dev] *
+    4)`` and on one device, their files byte for byte alike and their
+    coefficients / deltas equal; continuous mode at 0 DN against the plain
+    staged remap of the whole strip with the run's coefficients; quantized
+    mode at 0 DN against the cv::remap oracle (whole-image maps) on row
+    windows at every shard seam and the strip's ends; the PRESTT.RAW at 0
+    DN against the plain staged remap; then ``prestitch --mesh 1`` and the
+    default ``--mesh 1`` through ``cli.main``, byte for byte the 4-shard
+    files.  -> the launches of the mesh runs."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.io import tiff
+    from opticalimageprocessor_tpu_torch.models import (
+        sharded_align,
+        sharded_prestitch,
+    )
+    from opticalimageprocessor_tpu_torch.models.scene import load_rrc
+    from opticalimageprocessor_tpu_torch.parallel import sharded
+
+    files = {n: str(tmp / f"{n}.RAW")
+             for n in ("CMOS1.PAN", "CMOS2A.PAN", "CMOS1.MSS")}
+    csv = {n: str(tmp / f"{n}.csv")
+           for n in ("pan1", "pan2", *(f"msb{b}" for b in range(1, 5)))}
+    kb = {n: load_rrc(p, W if n.startswith("pan") else BW)
+          for n, p in csv.items()}
+    bands = tuple(csv[f"msb{b}"] for b in range(1, 5))
+    mss_h = _raw(files["CMOS1.MSS"]).reshape(-1, 4, BW).transpose(1, 0, 2)
+    root = tmp / "mesh"
+    root.mkdir()
+    res = {"lines": lines, "shards": MESH_SHARDS}
+    launches, dirs, fits = [], {}, {}
+    calls = []
+    restore = [_spy(sharded, "remap_band_dynamic", calls),
+               _spy(sharded, "plan_remap_sharded", calls)]
+    try:
+        for mode in ("continuous", "quantized"):
+            for n in (MESH_SHARDS, 1):
+                tag = f"align_{mode}_{n}"
+                d = dirs[tag] = root / tag
+                d.mkdir()
+                calls.clear()
+                t0 = time.perf_counter()
+                path, n_l = _counted(lambda: sharded_align.run_sharded_align(
+                    files["CMOS1.PAN"], files["CMOS1.MSS"], csv["pan1"],
+                    bands, n_devices=_line_mesh(dev, n), do_rrc_pan=True,
+                    slices=10, sections=1, out_dir=str(d),
+                    quantized_coords=mode == "quantized"))
+                res[f"{tag}_s"] = time.perf_counter() - t0
+                launches.append(n_l)
+                say(f"[mesh] {tag}: {res[tag + '_s']:.3f} s; launches {n_l}")
+                if mode == "continuous":
+                    fits[tag] = [(np.asarray(c[1]), np.asarray(c[2]),
+                                  c[3] if len(c) > 3 else 6) for c in calls]
+                    check(n_l["row_pass"] == 4 * n and n_l["rrc"] > 0
+                          and n_l["remap_band"] == 0
+                          and n_l["crosspower"] == 0,
+                          f"{tag}: launches {n_l}")
+                else:
+                    (_, cxq, cyq, _), = calls
+                    fits[tag] = (np.asarray(cxq), np.asarray(cyq))
+                    check(n_l["row_pass"] == 0 and n_l["rrc"] > 0,
+                          f"{tag}: launches {n_l}")
+            name = "CMOS1.MSS.ALIGNED.TIFF"
+            a, b = (dirs[f"align_{mode}_{n}"] / name
+                    for n in (MESH_SHARDS, 1))
+            check(same_file(a, b), f"{mode}: 4-shard ALIGNED != 1-shard")
+        for i, ((c4x, c4y, _), (c1x, c1y, _)) in enumerate(zip(
+                fits[f"align_continuous_{MESH_SHARDS}"],
+                fits["align_continuous_1"])):
+            check(np.array_equal(c4x, c1x) and np.array_equal(c4y, c1y),
+                  f"band {i + 1}: 4-shard coefficients != 1-shard")
+        check(all(np.array_equal(u, v) for u, v in zip(
+            fits[f"align_quantized_{MESH_SHARDS}"],
+            fits["align_quantized_1"])), "quantized coefficients differ")
+        say("[mesh] align: 4 shards and 1 give the same coefficients and "
+            "ALIGNED.TIFF byte for byte, both modes")
+
+        # continuous: the plain staged remap of the whole strip
+        img = tiff.read_tiff(str(dirs[f"align_continuous_{MESH_SHARDS}"]
+                                 / "CMOS1.MSS.ALIGNED.TIFF"))
+        for b, (cx, cy, rb) in enumerate(
+                fits[f"align_continuous_{MESH_SHARDS}"]):
+            src = torch.from_numpy(
+                rrc_oracle(mss_h[b], *kb[f"msb{b + 1}"])).to(dev)
+            plain = _plain_staged(src, cx, cy, rb)[520:].cpu().numpy()
+            check(np.array_equal(img[..., [2, 1, 0, 3].index(b)], plain),
+                  f"continuous band {b + 1} != the plain staged remap")
+        say("[mesh] continuous: ALIGNED.TIFF == plain staged remap of the "
+            "whole strip (kernel (e) vs _fast_row_pass_plain), 0 DN")
+        # quantized: the oracle at every shard seam and the strip's ends
+        img = tiff.read_tiff(str(dirs[f"align_quantized_{MESH_SHARDS}"]
+                                 / "CMOS1.MSS.ALIGNED.TIFF"))
+        cxq, cyq = fits[f"align_quantized_{MESH_SHARDS}"]
+        mrows = lines // 4
+        seams = [a for a, _ in sharded.shard_bounds(mrows, MESH_SHARDS)[1:]]
+        windows = [(520, 552), (mrows - 32, mrows)] + [
+            (s - 32, s + 32) for s in seams]
+        worst = 0
+        for l0, l1 in windows:
+            a, e = max(0, l0 - 16), min(mrows, l1 + 16)
+            for b in range(4):
+                want = oracle_rows(
+                    rrc_oracle(mss_h[b, a:e], *kb[f"msb{b + 1}"]), a, l0, l1,
+                    *poly_cols(cxq[b], cyq[b], BW), True)
+                got = img[l0 - 520:l1 - 520, :, [2, 1, 0, 3].index(b)]
+                worst = max(worst, int(np.abs(
+                    got.astype(np.int32) - want.astype(np.int32)).max()))
+        say(f"[mesh] quantized: ALIGNED.TIFF vs the cv::remap oracle "
+            f"(whole-image maps) at seams {seams} and the ends: max {worst} "
+            "DN")
+        check(worst == 0, "quantized mesh align vs the oracle")
+        del img
+
+        # prestitch, 4 shards and 1
+        deltas = {}
+        for n in (MESH_SHARDS, 1):
+            tag = f"prestitch_{n}"
+            d = dirs[tag] = root / tag
+            d.mkdir()
+            calls.clear()
+            t0 = time.perf_counter()
+            deltas[n], n_l = _counted(
+                lambda: sharded_prestitch.run_sharded_prestitch(
+                    files["CMOS1.PAN"], files["CMOS2A.PAN"], csv["pan1"],
+                    csv["pan2"], n_devices=_line_mesh(dev, n), sections=1,
+                    line_per_section=16000, overlap_cols=FOLD_COLS,
+                    out_dir=str(d)))
+            res[f"{tag}_s"] = time.perf_counter() - t0
+            launches.append(n_l)
+            say(f"[mesh] {tag}: deltas {deltas[n][:2]} in "
+                f"{res[tag + '_s']:.3f} s; launches {n_l}")
+            check(n_l["rrc"] == 2 * n and n_l["row_pass"] >= n
+                  and n_l["remap_band"] == 0, f"{tag}: launches {n_l}")
+        check(deltas[MESH_SHARDS][:2] == deltas[1][:2],
+              "prestitch deltas differ between 4 shards and 1")
+        dx, dy, prestt = deltas[MESH_SHARDS]
+        check(abs(dx + 3) < 0.05 and abs(dy - 3) < 0.05, f"stt {dx}, {dy}")
+        for name in ("CMOS1.PAN.RRC.RAW", "CMOS2A.PAN.RRC.RAW",
+                     "CMOS2A.PAN.RRC.PRESTT.RAW"):
+            check(same_file(dirs[f"prestitch_{MESH_SHARDS}"] / name,
+                            dirs["prestitch_1"] / name),
+                  f"prestitch {name}: 4 shards != 1")
+        (_, cxp, cyp, rbp), = calls
+        src = torch.from_numpy(
+            _raw(dirs[f"prestitch_{MESH_SHARDS}"] / "CMOS2A.PAN.RRC.RAW")
+        ).to(dev)
+        plain = _plain_staged(src, np.asarray(cxp), np.asarray(cyp), rbp)
+        check(np.array_equal(_raw(prestt), plain.cpu().numpy()),
+              "PRESTT.RAW != the plain staged remap")
+        del src, plain
+        torch.cuda.empty_cache()
+        say(f"[mesh] prestitch: 4 shards == 1 (RRC, PRESTT) byte for byte; "
+            f"PRESTT == plain staged remap at row bound {rbp}, 0 DN")
+    finally:
+        for r in restore:
+            r()
+
+    # --mesh 1 through the CLI: the 4-shard model runs' files
+    d = root / "cli_prestitch"
+    d.mkdir()
+    n_l, res["cli_prestitch_s"], _ = run_cli(
+        "prestitch --mesh 1",
+        ["prestitch", "--pan1", files["CMOS1.PAN"], "--pan2",
+         files["CMOS2A.PAN"], "--rrc1", csv["pan1"], "--rrc2", csv["pan2"],
+         "-s", "1", "-l", "16000", "--stitch-overlap", str(FOLD_COLS),
+         "--out-dir", str(d), "--mesh", "1", "--device", dev.type], "mesh")
+    launches.append(n_l)
+    for name in ("CMOS1.PAN.RRC.RAW", "CMOS2A.PAN.RRC.RAW",
+                 "CMOS2A.PAN.RRC.PRESTT.RAW"):
+        check(same_file(d / name, dirs[f"prestitch_{MESH_SHARDS}"] / name),
+              f"prestitch --mesh 1 {name} != the 4-shard run's")
+    d = root / "cli_align"
+    d.mkdir()
+    argv = ["--pan", files["CMOS1.PAN"], "--mss", files["CMOS1.MSS"],
+            "--do-rrc4pan", "--rrc-pan", csv["pan1"], "--slices", "10",
+            "--ibc-sections", "1", "--out-dir", str(d), "--mesh", "1",
+            "--device", dev.type]
+    for b in range(1, 5):
+        argv += [f"--rrc-msb{b}", csv[f"msb{b}"]]
+    n_l, res["cli_align_s"], _ = run_cli("default --mesh 1", argv, "mesh")
+    launches.append(n_l)
+    check(same_file(d / "CMOS1.MSS.ALIGNED.TIFF",
+                    dirs[f"align_continuous_{MESH_SHARDS}"]
+                    / "CMOS1.MSS.ALIGNED.TIFF"),
+          "default --mesh 1 ALIGNED.TIFF != the 4-shard run's")
+    say("[mesh] prestitch --mesh 1 and the default --mesh 1 through "
+        "cli.main == the 4-shard module runs byte for byte")
+    say(f"[mesh] files {json.dumps(res)}")
+    shutil.rmtree(root)
+    return _sum_launches(*launches)
+
+
+SCENE_OUTPUTS = ("MSS.ALIGNED.TIFF", "STITCHED.RAW", "MSS2.ALIGNED.TIFF",
+                 "STITCHED_MSS.TIFF")
+
+
+def phase_mesh_cli(dev, tmp: Path, want: dict, section: int = 4096):
+    """Through ``cli.main`` on phase 6's 34816-line files (``tmp``):
+    ``scene --mesh 1 --mss2`` and ``scene --stream --mesh 1 --mss2``, their
+    outputs at phase 6's SHA-256 (``want``: the streamed run's, equal to
+    the resident run's); ``scene --mesh 2`` on one card: rc 2 with JAX's
+    message; a partial ``OIP_DIST_*`` env in a subprocess: a non-zero rc
+    naming the missing variable.  -> the launches of the mesh runs."""
+    import torch
+
+    files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS", "MSS2")}
+    launches = []
+    for route, extra in (("mesh", ["--mesh", "1"]),
+                         ("stream_mesh", ["--stream", "--stream-section-lines",
+                                          str(section), "--mesh", "1"])):
+        out = tmp / route
+        out.mkdir()
+        n_l, secs, _ = run_cli(f"scene {' '.join(extra)} --mss2",
+                               scene_argv(files, tmp, out, dev, *extra),
+                               "mesh")
+        launches.append(n_l)
+        names = SCENE_OUTPUTS + (("PAN2.PRESTT.RAW",) if "--stream" in extra
+                                 else ())
+        got = {name: sha256_file(out / name) for name in names}
+        check(got == {k: want[k] for k in names},
+              f"scene {' '.join(extra)}: outputs != phase 6's")
+        say(f"[mesh] scene {' '.join(extra)} --mss2: {secs:.3f} s, outputs "
+            "== phase 6's (SHA-256)")
+        shutil.rmtree(out)
+    out = tmp / "mesh2"
+    out.mkdir()
+    n_l, _, text = run_cli(
+        "scene --mesh 2", scene_argv(files, tmp, out, dev, "--mesh", "2"),
+        "mesh", want_rc=2)
+    have = torch.cuda.device_count()
+    check(have >= 2 or f"--mesh 2 needs 2 devices, only {have} available"
+          in text, "scene --mesh 2 on one card: not JAX's message")
+    check(not any(n_l.values()) and not os.listdir(out),
+          "scene --mesh 2 on one card did work")
+    say("[mesh] scene --mesh 2 on one card: rc 2, "
+        f"'--mesh 2 needs 2 devices, only {have} available'")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OIP_DIST_NPROCS", "OIP_DIST_PROCID")}
+    env.update(OIP_DIST_COORD="127.0.0.1:1", PYTHONPATH=str(ROOT))
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\nfrom opticalimageprocessor_tpu_torch.cli import main\n"
+         "sys.exit(main(['--help']))"],
+        env=env, capture_output=True, text=True, timeout=300)
+    check(r.returncode != 0 and "OIP_DIST_NPROCS" in r.stderr + r.stdout,
+          f"a partial OIP_DIST_* env gave rc {r.returncode}")
+    say(f"[mesh] partial OIP_DIST_* env: rc {r.returncode}, names "
+        "OIP_DIST_NPROCS")
+    return _sum_launches(*launches)
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the device time of one forward goes
 # ---------------------------------------------------------------------------
 
@@ -2338,13 +2867,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_pipeline(dev, power)
         torch.cuda.empty_cache()
+        mesh_launches = [phase_mesh_scene(dev, power)]
+        torch.cuda.empty_cache()
         files_dir.mkdir()
         files_launches, files_shas = phase_files(dev, files_dir)
+        torch.cuda.empty_cache()
+        mesh_launches.append(phase_mesh_files(dev, files_dir))
         shutil.rmtree(files_dir)
         torch.cuda.empty_cache()
         stream_dir = Path(tmp, "stream")
         stream_dir.mkdir()
-        stream_launches = phase_stream(dev, power, stream_dir)
+        stream_launches, stream_shas = phase_stream(dev, power, stream_dir)
+        torch.cuda.empty_cache()
+        mesh_launches.append(phase_mesh_cli(dev, stream_dir, stream_shas))
         shutil.rmtree(stream_dir)
         torch.cuda.empty_cache()
         parity_dir = Path(tmp, "parity")
@@ -2357,11 +2892,13 @@ def main() -> int:
         downlink_launches = phase_downlink(dev, power, downlink_dir,
                                            files_shas)
         shutil.rmtree(downlink_dir)
+    mesh_launches = _sum_launches(*mesh_launches)
+    say(f"[mesh] launches of phase 9's mesh runs {mesh_launches}")
     launches = {k: launches[k] + files_launches[k] + stream_launches[k]
                 + parity_launches[k] + downlink_launches[k]
-                for k in launches}
+                + mesh_launches[k] for k in launches}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel was never launched in phases 3, 5, 6, 7 and 8: "
+          f"a kernel was never launched in phases 3, 5, 6, 7, 8 and 9: "
           f"{launches}")
 
     replaces = {

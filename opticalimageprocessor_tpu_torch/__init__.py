@@ -1,7 +1,8 @@
 """opticalimageprocessor_tpu_torch -- the PyTorch/CUDA port for NVIDIA
 Hopper (H100) of the ``scene`` pipeline and of the file commands
 (``auxsep``, on the host only; ``prestitch``, the default registration +
-alignment, ``stitch``).
+alignment, ``stitch``), on one device or over the line mesh
+(``parallel/``: one process driving N devices, ``--mesh N``).
 
 Plain tensor code is PyTorch; every kernel the JAX package wrote in Pallas
 for the TPU is a hand-written CUDA C++ kernel under ``csrc/``, built with

@@ -15,6 +15,7 @@ the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -142,10 +143,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(kernel: str, entry: str, *args) -> None:
-    """Call C entry ``entry``, raise on a launch error, count one launch
-    of ``kernel``."""
-    rc = getattr(library(), entry)(*args)
+def launch(kernel: str, entry: str, *args,
+           device: torch.device | None = None) -> None:
+    """Call C entry ``entry`` with ``device`` current, raise on a launch
+    error, count one launch of ``kernel``.  The C entry points launch on,
+    and set their kernels' attributes for, the calling thread's current
+    device: on a line mesh over several cards that must be the device of
+    the tensors (and of the stream) they are given.  The wrappers always
+    pass it."""
+    with (torch.cuda.device(device) if device is not None
+          else contextlib.nullcontext()):
+        rc = getattr(library(), entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1

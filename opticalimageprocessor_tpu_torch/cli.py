@@ -10,15 +10,19 @@ PyTorch versions):
   ``prestitch``: the parity route (bit for bit ``cv::remap``, in either
   ``--coord-mode``) or, with ``--fast``, the fast route;
 * ``stitch`` (host concatenation of the CMOS halves);
-* ``scene`` (the whole scene on one device): takes every flag of the JAX
+* ``scene`` (the whole scene in one run): takes every flag of the JAX
   CLI's ``scene`` and runs its checks; runs the resident route, or with
   ``--stream`` the streamed one, each with or without ``--mss2`` (the
   whole sample-task workflow).
 
 ``--profile DIR`` on the default action, ``prestitch`` and ``scene``
-writes a torch.profiler trace of the run into DIR.  ``--mesh`` (the
-multi-device route) is refused with 254.  The workflow of
-docs/sample-task.sh::
+writes a torch.profiler trace of the run into DIR.  ``--mesh N`` on the
+default action, ``prestitch``, ``scene`` and ``scene --stream`` runs the
+command over an N-device line mesh in this one process (``parallel/``):
+``cuda:0`` ... ``cuda:N-1``, or ``--device cpu --mesh N`` N shards on the
+CPU.  The ``OIP_DIST_*`` launch variables are checked before any work, as
+the JAX CLI checks them, and a multi-process launch is refused.  The
+workflow of docs/sample-task.sh::
 
     python -m opticalimageprocessor_tpu_torch.cli auxsep \
         KASHI_TJ3-01_20220817_031259_1.dat
@@ -75,32 +79,25 @@ _PROFILE_HELP = ("write a torch.profiler trace of the run (host activity, "
                  "and the card's with a CUDA --device) to DIR")
 
 
-def _add_port_flags(p: argparse.ArgumentParser, what: str) -> None:
-    """``--fast``, ``--mesh`` and ``--profile`` as the JAX CLI spells them
-    (the port refuses ``--mesh``), and ``--device``."""
+def _mesh_help(what: str) -> str:
+    return (f"run the {what} over an N-device line mesh (0 = single "
+            "device; fast-mode remap semantics): cuda:0 ... cuda:N-1, or N "
+            "shards on the CPU with --device cpu")
+
+
+def _add_port_flags(p: argparse.ArgumentParser, what: str,
+                    pipeline: str) -> None:
+    """``--fast``, ``--mesh`` and ``--profile`` as the JAX CLI spells them,
+    and ``--device``."""
     p.add_argument("--fast", action="store_true", default=False,
                    help=f"fast-mode {what} over the whole strip (within 1 "
                         "DN of the default parity route's sections)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="multi-device route (not ported yet)")
+                   help=_mesh_help(pipeline))
     p.add_argument("--profile", default="", metavar="DIR",
                    help=_PROFILE_HELP)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
-
-
-_UNPORTED = {
-    "--mesh": "the multi-device route",
-}
-
-
-def _refuse_flags(a, *flags: str) -> None:
-    """Refuse each of the JAX CLI's ``flags`` that is set: the port parses
-    them with the JAX spelling but does not run them yet."""
-    for flag in flags:
-        if getattr(a, flag[2:]):
-            raise UsageError(f"{flag}: {_UNPORTED[flag]} is not ported to "
-                             "the PyTorch package yet")
 
 
 def _build_default_parser() -> argparse.ArgumentParser:
@@ -116,7 +113,7 @@ def _build_default_parser() -> argparse.ArgumentParser:
             "auxsep (downlink AUX/image separation), "
             "prestitch (dual-CMOS stitch parameters + PAN2 correction), "
             "stitch (concatenate the CMOS halves), scene (the whole scene "
-            "on one device)"
+            "in one run)"
         ),
     )
     p.add_argument("-v", "--version", action="version", version="1.1")
@@ -155,7 +152,7 @@ def _build_default_parser() -> argparse.ArgumentParser:
                         "resample: OpenCV 5.x continuous, or OpenCV <= 4.x's "
                         "1/32-px grid (the fast route ignores it, as in the "
                         "JAX package)")
-    _add_port_flags(p, "alignment resample")
+    _add_port_flags(p, "alignment resample", "align pipeline")
     return p
 
 
@@ -177,12 +174,28 @@ def _default_action(a) -> int:
     _require_file(a.rrc_pan, "--rrc-pan")
     for i, f in enumerate(rrc_mss, 1):
         _require_file(f, f"--rrc-msb{i}")
-    _refuse_flags(a, "--mesh")
 
-    from .models.preprocessor import PreProcessor
     from .utils.logging import device_profile
 
     with device_profile(a.profile, a.device):
+        if a.mesh:
+            from .models.sharded_align import run_sharded_align
+
+            run_sharded_align(
+                a.pan, a.mss, a.rrc_pan, rrc_mss, n_devices=a.mesh,
+                do_rrc_pan=a.do_rrc4pan, do_rrc_mss=a.do_rrc4mss,
+                slices=a.slices, sections=a.ibc_sections,
+                threshold=a.ibc_threshold, line_offset=a.line_offset,
+                section_overlap=a.overlap_lines,
+                keep_leading_lines=a.keep_leading, out_dir=a.out_dir,
+                quantized_coords=a.coord_mode == "quantized",
+                write_rrcpan=a.do_rrc4pan and a.write_rrcpan,
+                device=a.device,
+            )
+            return 0
+
+        from .models.preprocessor import PreProcessor
+
         pp = PreProcessor(a.pan, a.mss, a.rrc_pan, rrc_mss,
                           out_dir=a.out_dir,
                           quantized_coords=a.coord_mode == "quantized",
@@ -245,7 +258,7 @@ def _prestitch(argv) -> int:
                         "resample: OpenCV 5.x continuous, or OpenCV <= 4.x's "
                         "1/32-px grid (the fast route ignores it, as in the "
                         "JAX package)")
-    _add_port_flags(p, "constant-shift resample")
+    _add_port_flags(p, "constant-shift resample", "prestitch pipeline")
     a = p.parse_args(argv)
     if a.edge_cols < 0 or a.edge_cols > a.stitch_overlap // 2:
         raise UsageError("invalid edge cols")
@@ -253,12 +266,25 @@ def _prestitch(argv) -> int:
     _require_file(a.pan2, "--pan2")
     _require_file(a.rrc1, "--rrc1")
     _require_file(a.rrc2, "--rrc2")
-    _refuse_flags(a, "--mesh")
 
-    from .models.stitcher import Stitcher
     from .utils.logging import device_profile
 
     with device_profile(a.profile, a.device):
+        if a.mesh:
+            from .models.sharded_prestitch import run_sharded_prestitch
+
+            run_sharded_prestitch(
+                a.pan1, a.pan2, a.rrc1, a.rrc2, n_devices=a.mesh,
+                sections=a.sections, line_per_section=a.section_lines,
+                overlap_cols=a.stitch_overlap, threshold=a.stt_threshold,
+                max_delta_y=a.stt_maxdeltay, edge_cols=a.edge_cols,
+                do_rrc=a.do_rrc, only_calculate=a.only_calculate,
+                out_dir=a.out_dir, device=a.device,
+            )
+            return 0
+
+        from .models.stitcher import Stitcher
+
         st = Stitcher(a.pan1, a.pan2, a.rrc1, a.rrc2, a.sections,
                       a.section_lines, a.stitch_overlap, out_dir=a.out_dir,
                       quantized_coords=a.coord_mode == "quantized",
@@ -314,8 +340,9 @@ def _scene(argv) -> int:
         prog="oiptorch scene",
         description=(
             "Whole-scene pipeline: RRC + registration + alignment + "
-            "prestitch + stitch on one device (fast-mode semantics; the "
-            "scene must fit in device memory unless --stream)"
+            "prestitch + stitch in one run (fast-mode semantics; the "
+            "scene must fit in device memory unless --stream, or in the "
+            "mesh's with --mesh N)"
         ),
     )
     p.add_argument("--pan1", required=True, help="CMOS1 PAN raw image")
@@ -346,10 +373,11 @@ def _scene(argv) -> int:
                    help="stitched PAN output (.TIFF or .RAW)")
     p.add_argument("--out-dir", default=None)
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="multi-device route (not ported yet)")
+                   help=_mesh_help("scene pipeline"))
     p.add_argument("--stream", action="store_true", default=False,
                    help="stream the scene in sections (bounded device "
-                        "memory, same outputs)")
+                        "memory, same outputs; with --mesh N, N sections "
+                        "at once, one a device)")
     p.add_argument("--stream-section-lines", type=int, default=4096,
                    help="PAN lines per streamed section (with --stream)")
     p.add_argument("--profile", default="", metavar="DIR",
@@ -378,7 +406,6 @@ def _scene(argv) -> int:
         *[(f"--rrc-m2b{i}", f) for i, f in enumerate(rrc_mss2, 1)],
     ):
         _require_file(f, opt)
-    _refuse_flags(a, "--mesh")
 
     kw = dict(
         mss2_file=a.mss2, rrc_mss2_files=rrc_mss2,
@@ -387,7 +414,7 @@ def _scene(argv) -> int:
         threshold=a.ibc_threshold, stt_threshold=a.stt_threshold,
         stt_max_delta_y=a.stt_maxdeltay, out_stitched=a.out,
         out_stitched_mss=a.out_mss, out_dir=a.out_dir, device=a.device,
-        profile_dir=a.profile,
+        profile_dir=a.profile, mesh=a.mesh,
     )
     if a.stream:
         from .models.scene_stream import run_scene_streamed
@@ -406,6 +433,12 @@ def _scene(argv) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    # the multi-process launch variables, before any work and outside the
+    # error mapping (JAX cli.py:441-448): a misconfigured launch must not
+    # run N independent copies racing on the same output files
+    from .parallel.distributed import check_distributed_env
+
+    check_distributed_env()
     try:
         if argv and argv[0] == "auxsep":
             rc = _auxsep(argv[1:])

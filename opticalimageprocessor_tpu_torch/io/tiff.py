@@ -7,8 +7,8 @@ The reader also takes the foreign rasters the reference read through
 OpenCV / GDAL (deflate, PackBits, planar, tiled, big-endian).
 
 Copied from ``opticalimageprocessor_tpu/io/tiff.py`` (the streaming
-writer, ``write_tiff``, ``read_tiff_info`` and the readers), without the
-multi-host drain helpers the port does not use.
+writer, ``write_tiff``, ``read_tiff_info``, the readers, and
+``create_tiff_shell`` for the line mesh's offset-write TIFF drain).
 """
 
 from __future__ import annotations
@@ -255,6 +255,45 @@ class TiffStripWriter:
             f.write(struct.pack("<I", 0))
             f.seek(4)
             f.write(struct.pack("<I", ifd_pos))
+
+
+def create_tiff_shell(
+    path: str,
+    width: int,
+    height: int,
+    samples: int = 1,
+    rows_per_strip: int = 512,
+    bigtiff: bool | None = None,
+    photometric: int | None = None,
+    extrasamples: int | None = None,
+) -> int:
+    """Create a complete UNCOMPRESSED strip TIFF with zeroed raster bytes
+    and the IFD already in place; returns the byte offset of raster row 0.
+
+    With no compression the strip layout is fixed up front (row ``r``
+    lives at ``data_start + r * width * samples * 2``), so a drain can fill
+    the rows of each shard at their offsets, in any order."""
+    w = TiffStripWriter(
+        path, width, height, samples,
+        rows_per_strip=rows_per_strip, compression="none",
+        bigtiff=bigtiff, photometric=photometric,
+        extrasamples=extrasamples,
+    )
+    data_start = w._f.tell()
+    rps = w.rows_per_strip
+    strip_bytes = rps * width * samples * 2
+    n_strips = -(-height // rps)
+    for k in range(n_strips):
+        rows = min(rps, height - k * rps)
+        w._offsets.append(data_start + k * strip_bytes)
+        w._counts.append(rows * width * samples * 2)
+    data_end = w._offsets[-1] + w._counts[-1]
+    w._f.truncate(data_end)
+    w._f.seek(data_end)
+    w._rows_written = height
+    w._write_ifd()
+    w._f.close()
+    return data_start
 
 
 def write_tiff(

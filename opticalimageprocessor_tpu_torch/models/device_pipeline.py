@@ -148,27 +148,30 @@ def section_tiles(geom: RegGeometry, pan_blk, band_blk,
     )
 
 
-def register_tiles(geom: RegGeometry, pan_tiles, band_tiles,
-                   win: tuple[int, int] = (64, 64),
-                   threshold: float = IBCV_DEF_THRESHOLD):
-    """The core of :func:`register_fast` on already gathered tiles: lists
-    of every section's :func:`section_tiles`, in section order (float32
-    (slices, corr_rows, cols) and (slices, 4, brows, bcols) each).  The
-    lists are emptied as they are consumed, so the tiles' memory is freed
-    before kernel (b) runs.  One batched rfft2 of all PAN tiles, one fft2
-    of all band tiles and one kernel-(b) launch, then the thresholded fit;
-    returns ``(coeffs, n_valid)`` as :func:`register_fast`.  Callers that
-    gather the same tiles in the same order get bit-identical estimates."""
+def correlate_tiles(geom: RegGeometry, pan_tiles, band_tiles,
+                    win: tuple[int, int] = (64, 64)):
+    """The correlation half of :func:`register_tiles`: lists of tile
+    blocks (float32 (n, corr_rows, cols) and (n, 4, brows, bcols) each),
+    emptied as they are consumed so the tiles' memory is freed before
+    kernel (b) runs; one batched rfft2 of the PAN tiles, one fft2 of the
+    band tiles and one kernel-(b) launch.  -> ``(dx, dy, rs)``, each (T,
+    4) float32.  The line mesh runs it on each device's block of tiles."""
     pad = (geom.corr_rows, geom.cols)
     win = phasecorr.clamp_win(win, pad)
     fpan = phasecorr.rfft2_padded(torch.cat(pan_tiles), pad)
     pan_tiles.clear()
     fband = phasecorr.band_full_spectrum_small(torch.cat(band_tiles))
     band_tiles.clear()
-    dx, dy, rs = windowed_crosspower_fused_tiles(
+    return windowed_crosspower_fused_tiles(
         fpan, fband, pad, geom.brows, win[0], win[1]
     )
-    del fpan, fband
+
+
+def fit_tiles(geom: RegGeometry, dx, dy, rs,
+              threshold: float = IBCV_DEF_THRESHOLD):
+    """The fit half of :func:`register_tiles`: the (T, 4) statistics of
+    every (section, slice) tile in section order -> ``(coeffs,
+    n_valid)``."""
     cx = (
         torch.arange(geom.slices, device=dx.device) * geom.cols
         + geom.cols // 2
@@ -178,6 +181,19 @@ def register_tiles(geom: RegGeometry, pan_tiles, band_tiles,
     coeff_x = _fit_poly(cx, dx.T, 1, w)
     coeff_y = _fit_poly(cx, dy.T, 2, w)
     return [(coeff_x[b], coeff_y[b]) for b in range(MSS_BANDS)], n_valid
+
+
+def register_tiles(geom: RegGeometry, pan_tiles, band_tiles,
+                   win: tuple[int, int] = (64, 64),
+                   threshold: float = IBCV_DEF_THRESHOLD):
+    """The core of :func:`register_fast` on already gathered tiles: lists
+    of every section's :func:`section_tiles`, in section order (float32
+    (slices, corr_rows, cols) and (slices, 4, brows, bcols) each), through
+    :func:`correlate_tiles` and :func:`fit_tiles`; returns ``(coeffs,
+    n_valid)`` as :func:`register_fast`.  Callers that gather the same
+    tiles in the same order get bit-identical estimates."""
+    dx, dy, rs = correlate_tiles(geom, pan_tiles, band_tiles, win)
+    return fit_tiles(geom, dx, dy, rs, threshold)
 
 
 def register_fast(
@@ -227,6 +243,58 @@ def check_registration_valid(n_valid) -> None:
             )
 
 
+def stt_offsets(lines: int, sections: int, line_per_section: int):
+    """First line of each of the stt estimate's ``sections`` windows of
+    ``line_per_section`` rows, spaced by equal gaps along a ``lines``-line
+    strip (CalcSttParameters, stitcher.h:151-160)."""
+    gap = (lines - sections * line_per_section) // (sections + 1)
+    return [gap + i * (gap + line_per_section) for i in range(sections)]
+
+
+def stt_geometry(lines: int, sections: int,
+                 line_per_section: int | None = None):
+    """Where the stt estimate samples a ``lines``-line strip: ->
+    ``(lps, offs)``, the window rows and each section's first line."""
+    lps = line_per_section or max(64, min(16000, lines // sections))
+    lps = max(64, lps - lps % 64)
+    if sections * lps > lines:
+        raise ValueError(
+            "PAN line count less than sections times line-per-section, "
+            "use smaller -s and/or -l value(s)"
+        )
+    return lps, stt_offsets(lines, sections, lps)
+
+
+def stt_peaks(t1, t2, win: tuple[int, int] = (64, 64)):
+    """Windowed correlation peaks of stacked float32 overlap windows ``t1``
+    / ``t2`` (n, lps, ow) -> ``(dx, dy, rs)``, each (n,)."""
+    shape = tuple(t1.shape[1:])
+    win = phasecorr.clamp_win(win, shape)
+    return phasecorr.peak_from_spectra_windowed(
+        phasecorr.rfft2_padded(t1, shape), phasecorr.rfft2_padded(t2, shape),
+        shape, win[0], win[1],
+    )
+
+
+def stt_average(dx, dy, rs, threshold: float = IBCV_DEF_THRESHOLD,
+                max_delta_y: float = 0.0):
+    """The deltas averaged over valid sections (response >= ``threshold``;
+    |dy| <= ``max_delta_y`` when positive) -> ``(delta_x, delta_y,
+    response, n_valid)`` 0-d tensors."""
+    ok = rs >= threshold
+    if max_delta_y > 0.0:
+        ok = ok & (dy.abs() <= max_delta_y)
+    w = ok.to(torch.float32)
+    n = w.sum()
+    denom = torch.clamp(n, min=1.0)
+    return (
+        (dx * w).sum() / denom,
+        (dy * w).sum() / denom,
+        (rs * w).sum() / denom,
+        n.to(torch.int32),
+    )
+
+
 def stt_estimate_fast(
     pan1: torch.Tensor,
     pan2: torch.Tensor,
@@ -240,26 +308,16 @@ def stt_estimate_fast(
 ):
     """Stitching-parameter estimation (CalcSttParameters,
     stitcher.h:148-201): phase-correlate ``sections`` sampled windows of
-    PAN1's right overlap strip against PAN2's left overlap strip, and
-    average the deltas over valid samples (response >= ``threshold``;
-    |dy| <= ``max_delta_y`` when positive).
+    PAN1's right overlap strip against PAN2's left overlap strip
+    (:func:`stt_geometry`, :func:`stt_peaks`), and average the deltas over
+    valid samples (:func:`stt_average`).
 
     Returns (delta_x, delta_y, response, n_valid) as 0-d tensors;
     ``n_valid == 0`` is the reference's "No valid delta value found"
     error (:func:`check_stt_valid`)."""
     lines, width = pan1.shape
-    lps = line_per_section or max(64, min(16000, lines // sections))
-    lps = max(64, lps - lps % 64)
-    if sections * lps > lines:
-        raise ValueError(
-            "PAN line count less than sections times line-per-section, "
-            "use smaller -s and/or -l value(s)"
-        )
-    gap = (lines - sections * lps) // (sections + 1)
-    step = gap + lps
+    lps, offs = stt_geometry(lines, sections, line_per_section)
     ow = overlap_cols - edge_cols
-    win = phasecorr.clamp_win(win, (lps, ow))
-    offs = [gap + i * step for i in range(sections)]
     c1 = width - overlap_cols
     t1 = torch.stack(
         [pan1[o:o + lps, c1:c1 + ow].to(torch.float32) for o in offs]
@@ -268,23 +326,7 @@ def stt_estimate_fast(
         [pan2[o:o + lps, edge_cols:edge_cols + ow].to(torch.float32)
          for o in offs]
     )
-    f1 = phasecorr.rfft2_padded(t1, (lps, ow))
-    f2 = phasecorr.rfft2_padded(t2, (lps, ow))
-    dx, dy, rs = phasecorr.peak_from_spectra_windowed(
-        f1, f2, (lps, ow), win[0], win[1]
-    )
-    ok = rs >= threshold
-    if max_delta_y > 0.0:
-        ok = ok & (dy.abs() <= max_delta_y)
-    w = ok.to(torch.float32)
-    n = w.sum()
-    denom = torch.clamp(n, min=1.0)
-    return (
-        (dx * w).sum() / denom,
-        (dy * w).sum() / denom,
-        (rs * w).sum() / denom,
-        n.to(torch.int32),
-    )
+    return stt_average(*stt_peaks(t1, t2, win), threshold, max_delta_y)
 
 
 def check_stt_valid(n_valid) -> None:

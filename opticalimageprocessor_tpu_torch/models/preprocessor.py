@@ -63,6 +63,42 @@ class InterBandShift:
     cx: int
 
 
+def ibc_geometry(lines_pan: int, width: int, slices: int, sections: int):
+    """The reference's sections x slices tile grid and its argument checks
+    (CalcInterBandCorrelation, preproc.h:224-259): ``min(lines, 16000)``-line
+    windows spaced by equal gaps along the strip, each cut into ``slices``
+    column slices; the MSS window offsets use the same integer-divided-by-4
+    bookkeeping.  -> (r0s, br0s, base_rows, band_rows, cols, band_cols,
+    centers), ``centers[t]`` the slice-centre x of tile ``t``
+    (section-major, slice-minor: the reference's sample order)."""
+    if slices < IBCV_MIN_SLICES:
+        raise ValueError(
+            f"CalcInterBandCorrelation: at lease {IBCV_MIN_SLICES} "
+            "slice needed"
+        )
+    if sections <= 0:
+        raise ValueError(
+            "CalcInterBandCorrelation: section count should be a "
+            "positive integer"
+        )
+    if sections > 1 and sections * CORRELATION_LINES > lines_pan:
+        raise ValueError(
+            "CalcInterBandCorrelation: too many sections "
+            f"({CORRELATION_LINES} lines per section), not enough total "
+            "PAN data lines"
+        )
+    base_rows = min(lines_pan, CORRELATION_LINES)
+    base_gap = (lines_pan - base_rows * sections) // (sections + 1)
+    cols = width // slices
+    band_rows = base_rows // MSS_BANDS
+    band_gap = base_gap // MSS_BANDS
+    band_cols = cols // MSS_BANDS
+    r0s = [base_gap + sec * (base_rows + base_gap) for sec in range(sections)]
+    br0s = [band_gap + sec * (band_rows + band_gap) for sec in range(sections)]
+    centers = [i * cols + cols // 2 for i in range(slices)] * sections
+    return r0s, br0s, base_rows, band_rows, cols, band_cols, centers
+
+
 @dataclass
 class PreProcessor:
     pan_file: str
@@ -163,42 +199,19 @@ class PreProcessor:
     ):
         """Tile extraction + upsample + batched phase correlation
         (preproc.h:224-347, same sampling geometry)."""
-        if slices < IBCV_MIN_SLICES:
-            raise ValueError(
-                f"CalcInterBandCorrelation: at lease {IBCV_MIN_SLICES} "
-                "slice needed"
-            )
-        if sections <= 0:
-            raise ValueError(
-                "CalcInterBandCorrelation: section count should be a "
-                "positive integer"
-            )
-        if sections > 1 and sections * CORRELATION_LINES > self.lines_pan:
-            raise ValueError(
-                "CalcInterBandCorrelation: too many sections "
-                f"({CORRELATION_LINES} lines per section), not enough total "
-                "PAN data lines"
-            )
+        r0s, br0s, base_rows, band_rows, cols, band_cols, centers = (
+            ibc_geometry(self.lines_pan, self.pixels_per_line, slices,
+                         sections))
         if not self._loaded:
             raise RuntimeError("call load_and_rrc() first")
-
-        base_rows = min(self.lines_pan, CORRELATION_LINES)
-        base_gap = (self.lines_pan - base_rows * sections) // (sections + 1)
-        cols = self.pixels_per_line // slices
-        band_rows = base_rows // MSS_BANDS
-        band_gap = base_gap // MSS_BANDS
-        band_cols = cols // MSS_BANDS
 
         olog(
             "Calculating inter-band correlation with %d slices in %d "
             "section(s) ...", slices, sections,
         )
-        centers = [i * cols + cols // 2 for i in range(slices)] * sections
         sec_stats = []
         with stage("ibc_correlate"):
-            for sec in range(sections):
-                r0 = base_gap + sec * (base_rows + base_gap)
-                br0 = band_gap + sec * (band_rows + band_gap)
+            for r0, br0 in zip(r0s, br0s):
                 pan_block = self.pan_rows(r0, r0 + base_rows)
                 band_blocks = [
                     self.band_rows(b, br0, br0 + band_rows)

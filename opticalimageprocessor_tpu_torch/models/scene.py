@@ -1,15 +1,17 @@
-"""Whole-scene pipeline (the CLI's ``scene`` subcommand), single device.
+"""Whole-scene pipeline (the CLI's ``scene`` subcommand).
 
 Counterpart of ``opticalimageprocessor_tpu/models/scene.py``: loads the
 PAN1/PAN2/MSS RAW strips and the RRC CSVs, runs
 :class:`~.device_pipeline.ScenePipeline` (estimate, then transform) on one
-device, reports the reference's validity failures with the same messages,
-and writes the CMOS1 ALIGNED.TIFF and the stitched PAN (RAW or TIFF).  With
-``mss2_file`` it runs the reference's whole ``DOC/sample-task.sh``
-workflow: CMOS2's MSS aligns against the prestitched PAN2 while that is
-still on the device (:class:`~.device_pipeline.MssAlign`), and the two
-aligned rasters stitch into one MSS TIFF.  ``models/scene_stream`` runs the
-same scene in bounded-memory sections.
+device or, with ``mesh=N``, on each shard of an N-device line mesh
+(``parallel/sharded_scene``), reports the reference's validity failures
+with the same messages, and writes the CMOS1 ALIGNED.TIFF and the stitched
+PAN (RAW or TIFF).  With ``mss2_file`` it runs the reference's whole
+``DOC/sample-task.sh`` workflow: CMOS2's MSS aligns against the
+prestitched PAN2 while that is still on the devices
+(:class:`~.device_pipeline.MssAlign`), and the two aligned rasters stitch
+into one MSS TIFF.  ``models/scene_stream`` runs the same scene in
+bounded-memory sections.
 
 RAW/TIFF/CSV host IO and logging come from the port's own host modules
 (``constants``, ``formats``, ``io``, ``utils.logging``).
@@ -33,7 +35,7 @@ from ..constants import (
 from ..formats.naming import build_output_file_path
 from ..formats.rrc_csv import load_rrc_params
 from ..io import raw as raw_io
-from ..io import tiff as tiff_io
+from ..parallel.mesh import LINE_AXIS, LineMesh, LineSharded, resolve_mesh
 from ..utils.logging import device_profile, logw, olog, stage
 
 from .device_pipeline import (
@@ -194,18 +196,38 @@ def _run_scene(
     pixels_per_line: int = PIXELS_PER_LINE,
     bgr_tiff_order: bool = True,
     device: str | torch.device = "cuda",
+    mesh: int | LineMesh = 0,
 ):
-    """Run the scene pipeline on one device; returns a dict of output
-    paths (``aligned``, ``stitched``; with ``mss2_file`` also ``aligned2``
-    and ``stitched_mss``).
+    """Run the scene pipeline; returns a dict of output paths
+    (``aligned``, ``stitched``; with ``mss2_file`` also ``aligned2`` and
+    ``stitched_mss``).
 
     With ``mss2_file`` CMOS2's MSS registers and aligns against the
     prestitched PAN2 (the sample task's step 3.2 uses ``S1_PAN2 =
     *.RRC.PRESTT.RAW``), and the two ALIGNED rasters stitch into one wide
-    MSS TIFF with ``fold_cols / 4`` fold columns."""
+    MSS TIFF with ``fold_cols / 4`` fold columns.
+
+    ``mesh``: 0 runs on ``device``; N (or an explicit
+    :class:`~..parallel.mesh.LineMesh`) over an N-device line mesh (JAX's
+    ``scene --mesh N``, models/scene.py:188-236).  Either way the strips
+    are ingested shard by shard from the memory maps (one shard on one
+    device), :class:`~..parallel.sharded_scene.ShardedScene` (and with
+    ``mss2_file`` :class:`~..parallel.sharded_scene.ShardedMssAlign`) runs
+    the scene on the shards through :class:`~.device_pipeline.
+    ScenePipeline` / :class:`~.device_pipeline.MssAlign`, and the rasters
+    drain shard by shard at their rows' offsets (``parallel/distributed``):
+    the same files, byte for byte, on any mesh at the same estimates."""
+    from ..parallel.distributed import (
+        drain_line_sharded_to_raw,
+        drain_line_sharded_to_tiff,
+    )
+    from ..parallel.sharded import ingest_line_sharded
+    from ..parallel.sharded_scene import ShardedMssAlign, ShardedScene
+
     if mss2_file:
         check_tiff_output(out_stitched_mss)
-    dev = resolve_device(device)
+    sharded = resolve_mesh(mesh, device)
+    mesh = sharded or LineMesh([resolve_device(device)])
     # the kx/ky contractions are float32 matmuls, as the JAX package runs
     # them at Precision.HIGHEST: never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -217,61 +239,58 @@ def _run_scene(
         raise ValueError("PAN1 size doesn't match PAN2 size")
     raw_io.check_pan_mss_sizes(p1, ms)
     olog("Scene: PAN %d lines, MSS %d lines.", p1.lines, ms.lines)
+    if sharded:
+        olog("Sharded scene over %d-device '%s' mesh.", len(mesh), LINE_AXIS)
 
-    pipe = scene_pipeline(
+    scene = ShardedScene(scene_pipeline(
         rrc_pan1, rrc_pan2, rrc_mss_files, pixels_per_line, slices,
         sections, fold_cols, stt_sections, threshold, stt_threshold,
         stt_max_delta_y, return_prestt=bool(mss2_file),
-    ).to(dev)
+    ), mesh)
+
+    def load_bands_sharded(strip):
+        view = strip._mm.reshape(strip.lines, MSS_BANDS, band_px)
+        return ingest_line_sharded(mesh, view.transpose(1, 0, 2), 1)
 
     with stage("scene_load", p1.nbytes * 2 + ms.nbytes):
-        pan1 = torch.from_numpy(np.array(p1._mm)).to(dev)
-        pan2 = torch.from_numpy(np.array(p2._mm)).to(dev)
-        mss = load_bands(ms, dev)
-
+        pan1 = ingest_line_sharded(mesh, p1._mm, 0, MSS_BANDS)
+        pan2 = ingest_line_sharded(mesh, p2._mm, 0, MSS_BANDS)
+        mss = load_bands_sharded(ms)
     with stage("scene_estimate", p1.nbytes + ms.nbytes):
-        cx, cy, n_valid, raw_dx, raw_dy, n_stt = pipe.estimate(
-            pan1, pan2, mss
-        )
+        cx, cy, n_valid, raw_dx, raw_dy, n_stt = scene.estimate(
+            pan1, pan2, mss)
         n_valid = n_valid.cpu().numpy()
         n_stt = int(n_stt)
     check_registration_valid(n_valid)
     check_stt_valid(n_stt)
-    dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
+    dxs, dys = scene.pipe.clamp_stt(raw_dx, raw_dy)
     log_scene_params(
         (cx.cpu().numpy(), cy.cpu().numpy(), dxs, dys, raw_dx, raw_dy),
         n_valid, n_stt,
     )
     with stage("scene_transform", p1.nbytes * 2 + ms.nbytes):
-        aligned, stitched, *prestt = pipe.transform(
-            pan1, pan2, mss, cx, cy, raw_dx, raw_dy
-        )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        aligned, stitched, *prestt = scene.transform(
+            pan1, pan2, mss, cx, cy, raw_dx, raw_dy)
+        for dev in mesh.distinct():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
     del pan1, pan2, mss
 
     order = [2, 1, 0, 3] if bgr_tiff_order else [0, 1, 2, 3]
     aligned_path = build_output_file_path(
         mss_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
     )
-    with stage("scene_write_aligned", aligned.numel() * 2):
-        write_aligned_tiff(aligned_path, aligned, order)
+    with stage("scene_write_aligned", ms.lines * band_px * MSS_BANDS * 2):
+        drain_line_sharded_to_tiff(aligned, aligned_path, order=order)
     olog("Aligned MSS written to %s", aligned_path)
 
-    st_w = int(stitched.shape[1])
+    st_w = stitched.shape[1]
     out_stitched = out_stitched or default_stitched_path(out_dir, st_w)
-    with stage("scene_write_stitched", stitched.numel() * 2):
+    with stage("scene_write_stitched", p1.lines * st_w * 2):
         if is_tiff(out_stitched):
-            writer = tiff_io.TiffStripWriter(
-                out_stitched, st_w, p1.lines, samples=1
-            )
-            for blk in _host_rows(stitched):
-                writer.write_rows(blk)
+            drain_line_sharded_to_tiff(stitched, out_stitched)
         else:
-            writer = raw_io.RawStripWriter(out_stitched, st_w)
-            for blk in _host_rows(stitched):
-                writer.write_lines(blk)
-        writer.close()
+            drain_line_sharded_to_raw(stitched, out_stitched, st_w)
     olog("Stitched PAN written to %s", out_stitched)
     outs = {"aligned": aligned_path, "stitched": out_stitched}
     if not mss2_file:
@@ -282,12 +301,12 @@ def _run_scene(
     # two aligned rasters (sample-task.sh steps 3.2 + 4)
     ms2 = raw_io.RawStrip(mss2_file, pixels_per_line)
     raw_io.check_pan_mss_sizes(p2, ms2)
-    align = make_mss_align(
+    align = ShardedMssAlign(make_mss_align(
         load_band_rrc(rrc_mss2_files, band_px), slices=slices,
         n_sections=sections, threshold=threshold,
-    ).to(dev)
+    ), mesh)
     with stage("scene_load_mss2", ms2.nbytes):
-        mss2 = load_bands(ms2, dev)
+        mss2 = load_bands_sharded(ms2)
     with stage("scene_align_mss2", ms2.nbytes):
         aligned2, n_valid2, (cx2, cy2) = align(prestt[0], mss2)
         n_valid2 = n_valid2.cpu().numpy()
@@ -298,22 +317,23 @@ def _run_scene(
     aligned2_path = build_output_file_path(
         mss2_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
     )
-    with stage("scene_write_aligned2", aligned2.numel() * 2):
-        write_aligned_tiff(aligned2_path, aligned2, order)
+    with stage("scene_write_aligned2", ms2.lines * band_px * MSS_BANDS * 2):
+        drain_line_sharded_to_tiff(aligned2, aligned2_path, order=order)
     olog("Aligned MSS (CMOS2) written to %s", aligned2_path)
 
+    # the seam concat on each shard's device (both rasters are cut alike)
     foldm_half = mss_fold_half(fold_cols)
     half = band_px - foldm_half
+    stitched_mss = LineSharded(mesh, [
+        torch.cat([a[:, :half], b[:, foldm_half:]], dim=1)
+        for a, b in zip(aligned.shards, aligned2.shards)
+    ])
+    del aligned, aligned2
     out_stitched_mss = out_stitched_mss or default_stitched_mss_path(out_dir)
-    with stage("scene_write_stitched_mss", aligned.numel() * 4):
-        writer = tiff_io.TiffStripWriter(
-            out_stitched_mss, 2 * half, ms.lines, samples=MSS_BANDS
-        )
-        for b1, b2 in zip(_host_rows(aligned), _host_rows(aligned2)):
-            writer.write_rows(np.concatenate(
-                [b1[:, :half, order], b2[:, foldm_half:, order]], axis=1
-            ))
-        writer.close()
+    with stage("scene_write_stitched_mss",
+               ms.lines * 2 * half * MSS_BANDS * 2):
+        drain_line_sharded_to_tiff(stitched_mss, out_stitched_mss,
+                                   order=order)
     olog("Stitched MSS written to %s", out_stitched_mss)
     outs.update({"aligned2": aligned2_path, "stitched_mss": out_stitched_mss})
     return outs
@@ -325,13 +345,3 @@ def load_bands(strip: raw_io.RawStrip, dev) -> torch.Tensor:
     band_px = strip.pixels_per_line // MSS_BANDS
     view = strip._mm.reshape(strip.lines, MSS_BANDS, band_px).transpose(1, 0, 2)
     return torch.from_numpy(np.ascontiguousarray(view)).to(dev)
-
-
-def write_aligned_tiff(path: str, aligned: torch.Tensor, order) -> None:
-    """Write a device (rows, W/4, 4) aligned raster as a 4-sample TIFF,
-    the channels in ``order``."""
-    rows, band_px, _ = aligned.shape
-    writer = tiff_io.TiffStripWriter(path, band_px, rows, samples=MSS_BANDS)
-    for blk in _host_rows(aligned):
-        writer.write_rows(blk[:, :, order])
-    writer.close()

@@ -1,5 +1,5 @@
 """Streamed whole-scene pipeline: the resident scene without its memory
-bound, single device.
+bound, on one device or, one section a device, over a line mesh.
 
 Counterpart of ``opticalimageprocessor_tpu/models/scene_stream.py``.
 ``models/scene.run_scene`` holds the whole scene on the device (~5x the PAN
@@ -34,9 +34,15 @@ rows.
 With ``mss2_file`` the prestitched PAN2 is written as ``.PRESTT.RAW``;
 CMOS2's MSS is estimated against that file and streamed at row bound 6,
 and the two ALIGNED.TIFFs are stream-stitched into the MSS TIFF.
+
+``mesh=N`` streams N sections at once, section ``j`` of each step on the
+mesh's device ``j`` (:class:`_Lanes`), each the single-device loop's
+section, so the outputs are the single-device stream's byte for byte.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -54,6 +60,7 @@ from ..io import raw as raw_io
 from ..io import tiff as tiff_io
 from ..io.raw import RawStrip
 from ..io.streaming import HostDeviceCopies, window
+from ..parallel.mesh import LINE_AXIS, LineMesh, resolve_mesh
 from ..utils.logging import device_profile, olog, stage
 from .device_pipeline import (
     MssAlign,
@@ -154,22 +161,66 @@ def _check_section_rows(section_rows: int) -> None:
         raise ValueError("section_rows must be a multiple of 4")
 
 
-def _stream(copies, n, load, step, write) -> None:
-    """The streamed loop: section k's work and drain are enqueued, then
-    section k + 1's host read and upload are issued and section k - 1's
-    drain is written, so the card works on k while the host reads k + 1
-    and writes k - 1."""
+def _stream(n, load, run, write) -> None:
+    """The streamed loop: step k's work and drain are enqueued
+    (``run``), then step k + 1's host read and upload are issued and step
+    k - 1's drain is written, so the devices work on k while the host reads
+    k + 1 and writes k - 1."""
     nxt = load(0)
     pending = None
     for k in range(n):
         cur, nxt = nxt, None
-        drain = copies.download(step(*cur))
+        drain = run(cur)
         if k + 1 < n:
             nxt = load(k + 1)
         if pending is not None:
-            write(*pending.wait())
+            write(pending)
         pending = drain
-    write(*pending.wait())
+    write(pending)
+
+
+class _Lanes:
+    """The devices a streamed loop runs on: one, or a line mesh's, each
+    with its own copy of the module and its own :class:`HostDeviceCopies`.
+    A step is ``len(devices)`` consecutive sections, section ``j`` of it on
+    device ``j`` (JAX's ``--stream --mesh N``: N single-device-shaped
+    sections at once, no collectives), so every section is the
+    single-device loop's section, computed alike."""
+
+    def __init__(self, module, device):
+        if isinstance(device, LineMesh):
+            devs = device.devices
+            own = next(module.buffers()).device
+            mods = {d: module if d == own else copy.deepcopy(module).to(d)
+                    for d in dict.fromkeys(devs)}
+        else:
+            devs = [torch.device(device)]
+            mods = {devs[0]: module}
+        self.devices = devs
+        self.modules = [mods[d] for d in devs]
+        self.copies = [HostDeviceCopies(d) for d in devs]
+
+    def run(self, n, load, step, write) -> int:
+        """Stream ``n`` sections: ``load(k, lane)`` -> the section's inputs,
+        ``step(lane, *inputs)`` -> its device outputs, ``write(*outputs)``
+        on the host, in section order.  Returns ``n``."""
+        width = len(self.devices)
+
+        def load_step(g):
+            return [(j, load(k, j))
+                    for j, k in enumerate(range(g * width,
+                                                min((g + 1) * width, n)))]
+
+        def run(cur):
+            return [self.copies[j].download(step(j, *inputs))
+                    for j, inputs in cur]
+
+        def write_step(drains):
+            for d in drains:
+                write(*d.wait())
+
+        _stream(-(-n // width), load_step, run, write_step)
+        return n
 
 
 def _write_tiff_rows(writer, block: np.ndarray) -> None:
@@ -191,29 +242,32 @@ def transform_streamed(pipe: ScenePipeline, p1: RawStrip, p2: RawStrip,
     2`` of the bands, clipped at the strip ends; its payload rows go, in
     line order, to ``write_aligned`` ((rows/4, W/4, 4)), ``write_stitched``
     and, where ``pipe.return_prestt``, ``write_prestt`` (host arrays valid
-    during the call).  Returns the number of sections."""
+    during the call).  ``device``: one device, or a
+    :class:`~..parallel.mesh.LineMesh` whose devices take consecutive
+    sections in turn.  Returns the number of sections."""
     _check_section_rows(section_rows)
-    dev = torch.device(device)
     # host floats once, not a device readback a section
     raw_dx, raw_dy = float(raw_dx), float(raw_dy)
     halo_p = pipe.prestt_row_bound + 2
     halo_b = pipe.row_bound + 2
-    copies = HostDeviceCopies(dev)
+    lanes = _Lanes(pipe, device)
+    coeffs = [(cx.to(d), cy.to(d)) for d in lanes.devices]
     n = -(-p1.lines // section_rows)
 
-    def load(k):
+    def load(k, j):
         off = k * section_rows
         lines = min(section_rows, p1.lines - off)
         a, b, top, _ = window(p1.lines, off, lines, halo_p)
         ab, bb, top_b, _ = window(ms.lines, off // MSS_BANDS,
                                   lines // MSS_BANDS, halo_b)
-        up = copies.upload([p1._mm[a:b], p2._mm[a:b], band_rows(ms, ab, bb)])
+        up = lanes.copies[j].upload(
+            [p1._mm[a:b], p2._mm[a:b], band_rows(ms, ab, bb)])
         return up, lines, top, top_b
 
-    def step(up, lines, top, top_b):
+    def step(j, up, lines, top, top_b):
         pan1, pan2, bands = up.get()
-        aligned, *pans = pipe.transform(pan1, pan2, bands, cx, cy, raw_dx,
-                                        raw_dy)
+        aligned, *pans = lanes.modules[j].transform(
+            pan1, pan2, bands, *coeffs[j], raw_dx, raw_dy)
         lb = lines // MSS_BANDS
         return [aligned[top_b:top_b + lb],
                 *(t[top:top + lines] for t in pans)]
@@ -224,8 +278,7 @@ def transform_streamed(pipe: ScenePipeline, p1: RawStrip, p2: RawStrip,
         if prestt is not None:
             write_prestt(prestt)
 
-    _stream(copies, n, load, step, write)
-    return n
+    return lanes.run(n, load, step, write)
 
 
 def transform_mss2_streamed(align: MssAlign, ms2: RawStrip, cx, cy,
@@ -233,26 +286,26 @@ def transform_mss2_streamed(align: MssAlign, ms2: RawStrip, cx, cy,
                             device="cuda") -> int:
     """MSS2's alignment in sections of ``section_rows / 4`` band rows with
     ``row_bound + 2`` halo rows (row bound 6: halo 8), each through
-    :meth:`MssAlign.transform` (kernel (a), one kernel-(c) launch).
-    Returns the number of sections."""
+    :meth:`MssAlign.transform` (kernel (a), one kernel-(c) launch), on one
+    device or a line mesh's in turn.  Returns the number of sections."""
     _check_section_rows(section_rows)
-    dev = torch.device(device)
     halo = align.row_bound + 2
     rows = section_rows // MSS_BANDS
-    copies = HostDeviceCopies(dev)
+    lanes = _Lanes(align, device)
+    coeffs = [(cx.to(d), cy.to(d)) for d in lanes.devices]
     n = -(-ms2.lines // rows)
 
-    def load(k):
+    def load(k, j):
         off = k * rows
         lines = min(rows, ms2.lines - off)
         a, b, top, _ = window(ms2.lines, off, lines, halo)
-        return copies.upload([band_rows(ms2, a, b)]), lines, top
+        return lanes.copies[j].upload([band_rows(ms2, a, b)]), lines, top
 
-    def step(up, lines, top):
-        return [align.transform(up.get()[0], cx, cy)[top:top + lines]]
+    def step(j, up, lines, top):
+        return [lanes.modules[j].transform(up.get()[0], *coeffs[j])[
+            top:top + lines]]
 
-    _stream(copies, n, load, step, write_aligned)
-    return n
+    return lanes.run(n, load, step, write_aligned)
 
 
 def run_scene_streamed(*args, profile_dir: str = "", **kw):
@@ -286,15 +339,24 @@ def _run_scene_streamed(
     bgr_tiff_order: bool = True,
     section_rows: int = 4096,
     device: str | torch.device = "cuda",
+    mesh: int | LineMesh = 0,
 ):
     """The streamed scene: the outputs of ``run_scene`` with the same
     arguments, byte for byte, with device memory bounded by a few
     ``section_rows``-line sections.  Returns the output paths (with
-    ``mss2_file`` also ``prestt``, the prestitched PAN2 RAW)."""
+    ``mss2_file`` also ``prestt``, the prestitched PAN2 RAW).
+
+    ``mesh=N`` (``scene --stream --mesh N``) runs N sections at once, one
+    on each device of an N-device line mesh, each the single-device loop's
+    section (no collectives), so the outputs are the single-device
+    stream's byte for byte.  The estimate, which reads sampled windows
+    only, runs on the mesh's first device."""
     if mss2_file:
         check_tiff_output(out_stitched_mss)
     _check_section_rows(section_rows)
-    dev = resolve_device(device)
+    mesh_obj = resolve_mesh(mesh, device)
+    lanes = mesh_obj or device
+    dev = mesh_obj.devices[0] if mesh_obj else resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     band_px = pixels_per_line // MSS_BANDS
     p1 = raw_io.RawStrip(pan1_file, pixels_per_line)
@@ -305,6 +367,10 @@ def _run_scene_streamed(
     raw_io.check_pan_mss_sizes(p1, ms)
     olog("Streamed scene: PAN %d lines, MSS %d lines, %d-line sections.",
          p1.lines, ms.lines, section_rows)
+    if mesh_obj:
+        olog("Streamed scene sharded over %d-device '%s' mesh (%d sections "
+             "of %d PAN lines in flight).", len(mesh_obj), LINE_AXIS,
+             len(mesh_obj), section_rows)
 
     pipe = scene_pipeline(
         rrc_pan1, rrc_pan2, rrc_mss_files, pixels_per_line, slices,
@@ -351,7 +417,7 @@ def _run_scene_streamed(
             pipe, p1, p2, ms, cx, cy, raw_dx, raw_dy,
             lambda blk: aligned_w.write_rows(blk[:, :, order]),
             write_stitched, prestt_w.write_lines if prestt_w else None,
-            section_rows, dev,
+            section_rows, lanes,
         )
     for w in (aligned_w, stitched_w, prestt_w):
         if w is not None:
@@ -387,7 +453,7 @@ def _run_scene_streamed(
         transform_mss2_streamed(
             align, ms2, cx2, cy2,
             lambda blk: aligned2_w.write_rows(blk[:, :, order]),
-            section_rows, dev,
+            section_rows, lanes,
         )
     aligned2_w.close()
     olog("Aligned MSS (CMOS2) written to %s", aligned2_path)

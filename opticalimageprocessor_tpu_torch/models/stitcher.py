@@ -50,6 +50,7 @@ from ..io import raw as raw_io
 from ..io import tiff as tiff_io
 from ..io.streaming import stream_process
 from ..ops import phasecorr, resample, rrc
+from .device_pipeline import stt_offsets
 from .scene import _host_rows, load_rrc, resolve_device
 
 
@@ -147,14 +148,11 @@ class Stitcher:
         max_delta_y: float = STT_DEF_MAXDELTAY,
         edge_cols: int = STT_DEF_EDGECOLS,
     ):
-        gap = (self.lines_pan - self.sections * self.line_per_section) // (
-            self.sections + 1
-        )
-        step = gap + self.line_per_section
         p1 = raw_io.RawStrip(self.rrc_file_pan1, self.pixels_per_line)
         p2 = raw_io.RawStrip(self.rrc_file_pan2, self.pixels_per_line)
         ppl = self.pixels_per_line
-        offs = [gap + i * step for i in range(self.sections)]
+        offs = stt_offsets(self.lines_pan, self.sections,
+                           self.line_per_section)
         s1 = np.stack([
             p1.section(o, self.line_per_section)[
                 :, ppl - self.overlap_cols:ppl - edge_cols]

@@ -164,7 +164,7 @@ def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
         "crosspower", "oip_crosspower", fpan.data_ptr(), fband.data_ptr(),
         hr.data_ptr(), hc.data_ptr(), packed.data_ptr(), out_re.data_ptr(),
         out_im.data_ptr(), tiles, n_bands, M, keep, m, n, wx,
-        _build.stream_of(fpan),
+        _build.stream_of(fpan), device=fpan.device,
     )
     return out_re, out_im
 

@@ -306,7 +306,7 @@ def _remap_bands_cuda(src, coeff_x, coeff_y, row_bound, block, halo):
         "remap_band", "oip_remap_bands", src.data_ptr(), out.data_ptr(),
         bands, rows, width, block, halo, row_bound,
         coeff_x.contiguous().data_ptr(), coeff_y.contiguous().data_ptr(),
-        seg, tile, _build.stream_of(src),
+        seg, tile, _build.stream_of(src), device=src.device,
     )
     return out
 
@@ -385,7 +385,7 @@ def _fast_row_pass_cuda(padded: torch.Tensor, cu: torch.Tensor,
     _build.launch(
         "row_pass", "oip_row_pass", padded.data_ptr(), cu.data_ptr(),
         out.data_ptr(), rows, width, cu.shape[0], *geometry,
-        _build.stream_of(padded),
+        _build.stream_of(padded), device=padded.device,
     )
     return out
 
@@ -570,6 +570,7 @@ def _stitch_tail_cuda(pan1, pan2, k1, b1, k2, b2, dx, dy, fold, block, halo,
         k2.contiguous().data_ptr(), b2.contiguous().data_ptr(),
         stitched.data_ptr(), prestt.data_ptr() if want_prestt else None,
         rows, width, fold, block, halo, dx, dy, _build.stream_of(pan1),
+        device=dev,
     )
     return (stitched, prestt) if want_prestt else stitched
 
@@ -708,10 +709,12 @@ PARITY_CHUNK_ROWS = 2048   # output rows a step of remap_section_u16
 
 def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
                 col_idx: torch.Tensor, col_ok: torch.Tensor,
-                g: torch.Tensor, y0: int, y1: int) -> torch.Tensor:
-    """Output rows [y0, y1) of the section ``src``: float32 (y1 - y0, W)
-    before rounding.  Every float operation is one rounded IEEE operation
-    in the oracle's order (no multiply-add is fused)."""
+                g: torch.Tensor, y0: int, y1: int,
+                origin: int = 0) -> torch.Tensor:
+    """Output rows [y0, y1) of the section ``src``, whose row 0 is map row
+    ``origin``: float32 (y1 - y0, W) before rounding.  Every float
+    operation is one rounded IEEE operation in the oracle's order (no
+    multiply-add is fused)."""
     rows, width = src.shape
     f32 = torch.float32
     # source rows [b0, b1) with zeros beyond the section, plus one zero
@@ -726,7 +729,8 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
     colg.masked_fill_(~col_ok, 0.0)
     colg = colg.view(-1, 4)
 
-    y = torch.arange(y0, y1, dtype=torch.float64, device=src.device)
+    y = torch.arange(y0 + origin, y1 + origin, dtype=torch.float64,
+                     device=src.device)
     v = (y[:, None] + g[None, :]).to(f32)       # float32(y + g), as the map
     if plan.quantized:
         s = torch.round(v * 32.0).to(torch.int64)
@@ -740,7 +744,7 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
     wy = _cubic_weights_f32(fy)
     del fy
     # buffer row of tap a = 0: source row iy - 1 sits at iy - 1 - b0 + 1
-    base = iy - b0
+    base = iy - (b0 + origin)
     del iy
     x = torch.arange(width, device=src.device)
     acc = None
@@ -755,12 +759,19 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
     return acc
 
 
-def remap_section_u16(src: torch.Tensor, plan: RemapPlan) -> torch.Tensor:
+def remap_section_u16(src: torch.Tensor, plan: RemapPlan, first: int = 0,
+                      count: int | None = None,
+                      origin: int = 0) -> torch.Tensor:
     """``cv::remap(section, mapx, mapy, INTER_CUBIC, BORDER_CONSTANT, 0)``
     of a (rows, W) uint16 section with the section-local maps of ``plan``:
     rows and columns outside the section read 0, a pixel whose whole 4x4
     support lies outside is 0, the sum is rounded half to even and clamped
     to [0, 65535].  Returns (rows, W) uint16 on ``src``'s device.
+
+    ``first`` / ``count`` select output rows ``[first, first + count)`` of
+    the section, and ``origin`` is the map row of the section's row 0: the
+    line mesh remaps a shard with its halo rows under whole-image maps
+    (``mapy = float32(y + G)``, ``y`` the strip's row).
 
     Works through the section :data:`PARITY_CHUNK_ROWS` output rows at a
     time (read at call time), each with its halo rows and its absolute
@@ -772,6 +783,7 @@ def remap_section_u16(src: torch.Tensor, plan: RemapPlan) -> torch.Tensor:
         raise ValueError(
             f"remap_section_u16: section width {width} != plan width "
             f"{plan.width}")
+    count = rows - first if count is None else count
     dev = src.device
     wx = torch.from_numpy(np.ascontiguousarray(plan.wx.T)).to(dev)
     cols = torch.from_numpy(plan.col_tap0.astype(np.int64))[:, None] + \
@@ -780,11 +792,11 @@ def remap_section_u16(src: torch.Tensor, plan: RemapPlan) -> torch.Tensor:
     col_idx = torch.clamp(cols, 0, width - 1).view(-1).to(dev)
     g = torch.from_numpy(plan.g).to(dev)
     chunk = PARITY_CHUNK_ROWS
-    out = torch.empty((rows, width), dtype=torch.uint16, device=dev)
-    for y0 in range(0, rows, chunk):
-        y1 = min(y0 + chunk, rows)
-        out[y0:y1] = _round_u16(
-            _remap_rows(src, plan, wx, col_idx, col_ok, g, y0, y1))
+    out = torch.empty((count, width), dtype=torch.uint16, device=dev)
+    for y0 in range(first, first + count, chunk):
+        y1 = min(y0 + chunk, first + count)
+        out[y0 - first:y1 - first] = _round_u16(
+            _remap_rows(src, plan, wx, col_idx, col_ok, g, y0, y1, origin))
     return out
 
 

@@ -70,7 +70,7 @@ def _rrc_cuda(src: torch.Tensor, k: torch.Tensor, b: torch.Tensor):
     _build.launch(
         "rrc", "oip_rrc", s3.data_ptr(), out.data_ptr(), k2.data_ptr(),
         b2.data_ptr(), batch, rows, cols, s3.stride(1), s3.stride(0),
-        _build.stream_of(src),
+        _build.stream_of(src), device=src.device,
     )
     return out[0] if squeeze else out
 

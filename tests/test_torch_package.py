@@ -37,6 +37,8 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.models.preprocessor",
     "opticalimageprocessor_tpu_torch.models.scene",
     "opticalimageprocessor_tpu_torch.models.scene_stream",
+    "opticalimageprocessor_tpu_torch.models.sharded_align",
+    "opticalimageprocessor_tpu_torch.models.sharded_prestitch",
     "opticalimageprocessor_tpu_torch.models.stitcher",
     "opticalimageprocessor_tpu_torch.ops",
     "opticalimageprocessor_tpu_torch.ops.phasecorr",
@@ -44,6 +46,12 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.ops.polyfit",
     "opticalimageprocessor_tpu_torch.ops.resample",
     "opticalimageprocessor_tpu_torch.ops.rrc",
+    "opticalimageprocessor_tpu_torch.parallel",
+    "opticalimageprocessor_tpu_torch.parallel.distributed",
+    "opticalimageprocessor_tpu_torch.parallel.halo",
+    "opticalimageprocessor_tpu_torch.parallel.mesh",
+    "opticalimageprocessor_tpu_torch.parallel.sharded",
+    "opticalimageprocessor_tpu_torch.parallel.sharded_scene",
     "opticalimageprocessor_tpu_torch.utils",
     "opticalimageprocessor_tpu_torch.utils.logging",
     "opticalimageprocessor_tpu_torch.utils.native",

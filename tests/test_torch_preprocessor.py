@@ -192,7 +192,8 @@ def test_parity_route_is_refused(scene):
                                   "bad_threshold", "missing_band_rrc"])
 def test_cli_usage_errors(scene, case, tmp_path):
     """Usage errors give 254; without ``--fast`` (the parity route, which
-    once gave 254) and with ``--profile`` (once refused with 254) the JAX
+    once gave 254), with ``--profile`` (once refused with 254) and with
+    ``--mesh`` (the line mesh, refused with 254 until it was ported) the JAX
     CLI's rc for the same argv: 2, the camera width does not divide this
     scene's files."""
     _, files = scene
@@ -210,7 +211,7 @@ def test_cli_usage_errors(scene, case, tmp_path):
         "missing_band_rrc": ["--fast", "--pan", files["pan"], "--mss",
                              files["mss"]],
     }[case]
-    if case == "no_fast":
+    if case in ("no_fast", "mesh"):
         i = argv.index("--device")
         assert cli.main(argv) == jcli.main(argv[:i] + argv[i + 2:]) == 2
     elif case == "profile":

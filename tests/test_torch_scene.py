@@ -319,10 +319,9 @@ def test_cli_scene_stream_mss2_runs_at_camera_width(wide_scene):
 ])
 def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
     """Usage errors exit 254 before any work, with the JAX CLI's checks and
-    messages; the JAX flag the port does not run yet (``--mesh``) is
-    refused by name.  The runtime checks of ``--mss2`` and ``--stream`` (a
-    non-TIFF stitched MSS, section lines that are no multiple of 4) exit 2
-    before any device work.  ``--profile``, once refused, gives the JAX
+    messages.  The runtime checks of ``--mss2``, ``--stream`` and ``--mesh``
+    (a non-TIFF stitched MSS, section lines that are no multiple of 4, a
+    negative mesh, resident or streamed) exit 2 before any device work.  ``--profile``, once refused, gives the JAX
     CLI's rc for the same argv (0) and writes one trace."""
     d, files = wide_scene
     nope = os.path.join(d, "nope.RAW")
@@ -333,7 +332,7 @@ def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
         "mss2": (["--mss2", files["mss2"], "--out-mss",
                   os.path.join(d, "X.RAW")], 2,
                  "Output file should be a tiff image"),
-        "mesh": (["--mesh", "2"], 254, "--mesh: the multi-device route"),
+        "mesh": (["--mesh", "-1"], 2, "mesh must be >= 0, got -1"),
         "stream": (["--stream", "--stream-section-lines", "130"], 2,
                    "section_rows must be a multiple of 4"),
         "profile": (["--profile", prof], 0, ""),
@@ -343,8 +342,8 @@ def test_cli_scene_usage_errors(wide_scene, case, capsys, caplog):
                                "--out-mss needs --mss2"),
         "missing_mss2": (["--mss2", nope], 254,
                          f"--mss2: File does not exist: {nope}"),
-        "mesh_stream": (["--mesh", "2", "--stream"], 254,
-                        "--mesh: the multi-device route"),
+        "mesh_stream": (["--mesh", "-1", "--stream"], 2,
+                        "mesh must be >= 0, got -1"),
     }[case]
     f = dict(files, pan1=nope) if case == "missing_pan1" else files
     capsys.readouterr()

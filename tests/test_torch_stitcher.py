@@ -216,15 +216,14 @@ def test_stitch_raw_byte_equal_to_jax(tmp_path, rng, out):
 @pytest.mark.parametrize("case,rc", [
     ("stitch_fold_too_small", 254), ("stitch_map_without_gdal", 254),
     ("stitch_mixed_types", 2), ("prestitch_without_fast", 2),
-    ("prestitch_mesh", 254), ("prestitch_profile", 2),
+    ("prestitch_mesh", 2), ("prestitch_profile", 2),
     ("prestitch_missing_pan2", 254), ("prestitch_bad_edge_cols", 254),
     ("auxsep", 2),
 ])
 def test_cli_exit_codes(tmp_path, case, rc):
-    """The JAX CLI's exit codes for the same argv: ``--profile`` and
-    ``auxsep`` run (an undersized PAN for the default -s x -l, and a name
-    that matches no AOS pattern, are runtime errors); ``--mesh`` is still
-    refused."""
+    """The JAX CLI's exit codes for the same argv: ``--profile``, ``--mesh``
+    and ``auxsep`` run (an undersized PAN for the default -s x -l, and a
+    name that matches no AOS pattern, are runtime errors)."""
     p = str(tmp_path / "a.RAW")
     np.zeros((4, 12288), np.uint16).tofile(p)
     pre = ["prestitch", "--pan1", p, "--pan2", p, "--device", "cpu"]
