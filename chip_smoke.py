@@ -92,10 +92,27 @@ Phases (any failure exits non-zero and prints no result line):
    ``prestitch --mesh 1`` / the default ``--mesh 1`` through ``cli.main``;
    after phase 6, ``scene --mesh 1 --mss2`` and ``scene --stream --mesh 1
    --mss2`` at phase 6's SHA-256, ``scene --mesh 2`` refused on one card
-   (rc 2), and a partial ``OIP_DIST_*`` env refused in a subprocess.
+   (rc 2), a partial ``OIP_DIST_*`` env refused in a subprocess, and a
+   complete one of one process joined and run (``stitch``);
+10. the multi-process launch: two processes through ``python -m
+   opticalimageprocessor_tpu_torch.cli``, each with a complete
+   ``OIP_DIST_*`` set claiming card 0 (``OIP_DIST_LOCAL_DEVICE_IDS=0``),
+   one logical ``--mesh 2`` over them: after phase 9's file part,
+   ``prestitch --fast --mesh 2`` and the default ``--fast --mesh 2`` on
+   phase 5's files ((a), (e)); after phase 9's CLI part, ``scene --mesh 2
+   --mss2`` on phase 6's 34816-line files ((a)-(d) in both processes).
+   Every output equal by SHA-256 to a one-process run of the same command
+   on ``LineMesh([cuda:0] * 2)``, whether it equals phase 5's / 6's
+   printed; each rank's transport (gloo through pinned host copies, as the
+   processes share the card), its wall and stage spans and its launches,
+   and the two-process wall beside the one-process 2-shard wall.
+
+After phase 2, ``graft_entry.entry()``'s step runs on the card at 0 DN
+against the CPU's plain versions.
 
 The last two lines of standard output are the kernels' JSON record
-(launches over phases 3, 5, 6, 7, 8 and 9, error, kernel, plain and bound ms at
+(launches over phases 3 and 5-10, phase 10's both ranks' included, error,
+kernel, plain and bound ms at
 phase 2's shapes, plus the scene shapes' ms and bound for (b) and (d), the
 streamed section's for (d), the file commands' and MSS2's shapes' ms and
 bound for (c), and each of (e)'s shapes' ms and bound) and
@@ -2657,7 +2674,8 @@ def phase_mesh_cli(dev, tmp: Path, want: dict, section: int = 4096):
     outputs at phase 6's SHA-256 (``want``: the streamed run's, equal to
     the resident run's); ``scene --mesh 2`` on one card: rc 2 with JAX's
     message; a partial ``OIP_DIST_*`` env in a subprocess: a non-zero rc
-    naming the missing variable.  -> the launches of the mesh runs."""
+    naming the missing variable; a complete one of one process: joined,
+    ``stitch`` run.  -> the launches of the mesh runs."""
     import torch
 
     files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS", "MSS2")}
@@ -2703,6 +2721,267 @@ def phase_mesh_cli(dev, tmp: Path, want: dict, section: int = 4096):
           f"a partial OIP_DIST_* env gave rc {r.returncode}")
     say(f"[mesh] partial OIP_DIST_* env: rc {r.returncode}, names "
         "OIP_DIST_NPROCS")
+    # a complete set of one process joins the group and runs
+    a = tmp / "join.RAW"
+    np.zeros((16, W), np.uint16).tofile(a)
+    pair = dist_pair("stitch (one-process OIP_DIST_* set)",
+                     ["stitch", "--image1", str(a), "--image2", str(a), "-o",
+                      str(tmp / "join_out.RAW"), "-c", str(FOLD_COLS)], tmp,
+                     nprocs=1)
+    check((tmp / "join_out.RAW").stat().st_size
+          == 16 * 2 * (W - FOLD_COLS // 2) * 2, "the joined stitch's output")
+    say(f"[mesh] complete OIP_DIST_* env of one process: joined and ran "
+        f"stitch in {pair['wall_s']:.3f} s")
+    return _sum_launches(*launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the multi-process launch, two processes on the one card
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+
+# one rank: ``python -m opticalimageprocessor_tpu_torch.cli argv`` (runpy, as
+# -m runs it), then its wall in the process and its kernel launches
+_DIST_RANK = (
+    "import json, runpy, sys, time\n"
+    "from opticalimageprocessor_tpu_torch import _build\n"
+    "sys.argv = ['opticalimageprocessor_tpu_torch.cli', *sys.argv[1:]]\n"
+    "t0 = time.perf_counter()\n"
+    "try:\n"
+    "    runpy.run_module('opticalimageprocessor_tpu_torch.cli',\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print('[wall] %.3f' % (time.perf_counter() - t0))\n"
+    "print('[launches] ' + json.dumps(_build.LAUNCHES))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def check_graft_entry(dev) -> None:
+    """``graft_entry.entry()``'s step on the card (kernels (a) and (e)) at
+    0 DN against the same step on the CPU (their plain versions)."""
+    from opticalimageprocessor_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    got = fn(*args, device=dev).cpu().numpy()
+    want = fn(*args, device="cpu").numpy()
+    check(got.shape == (512, 3072) and np.array_equal(got, want),
+          "graft_entry.entry() on the card != on the CPU")
+    say("[graft] entry(): RRC + the staged remap on a 512 x 3072 band, on "
+        "the card == on the CPU (0 DN)")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_pair(tag, argv, tmp: Path, nprocs: int = DIST_RANKS,
+              timeout: float = 600.0) -> dict:
+    """``argv`` through ``python -m opticalimageprocessor_tpu_torch.cli`` in
+    ``nprocs`` processes under one complete ``OIP_DIST_*`` set, every
+    process claiming card 0 (``OIP_DIST_LOCAL_DEVICE_IDS=0``); each wait
+    has a timeout and every process is stopped in a ``finally``.  Fails
+    unless every rank exits 0.  -> the pair's wall, each rank's wall in
+    its process, launches (summed over the ranks), transport and stage
+    spans (from its log)."""
+    # the host's cores shared out, as torchrun does: each rank's own OpenMP
+    # pool over all of them makes the ranks' host threads spin on each
+    # other
+    env = {**os.environ, "PYTHONPATH": str(ROOT),
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // nprocs)),
+           "OIP_DIST_COORD": f"127.0.0.1:{_free_port()}",
+           "OIP_DIST_NPROCS": str(nprocs),
+           "OIP_DIST_LOCAL_DEVICE_IDS": "0"}
+    procs, outs, logs = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(nprocs):
+            outs.append(tmp / f"{tag}_{r}.out")
+            logs.append(tmp / f"{tag}_{r}.log")
+            with open(outs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _DIST_RANK, *argv],
+                    env={**env, "OIP_DIST_PROCID": str(r),
+                         "LOGFILE": str(logs[-1])},
+                    stdout=f, stderr=subprocess.STDOUT, cwd=str(tmp)))
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    res = {"wall_s": wall, "ranks": []}
+    for r, (rc, out, log) in enumerate(zip(rcs, outs, logs)):
+        text = out.read_text()
+        check(rc == 0, f"{tag}: rank {r} exit code {rc}:\n{text[-4000:]}")
+        log_text = log.read_text()
+        check("joined the process group" in log_text,
+              f"{tag}: rank {r} did not join the process group")
+        transport = re.findall(r"rows cross processes (.*)\.$", log_text,
+                               re.M)
+        res["ranks"].append({
+            "wall_s": float(re.search(r"^\[wall\] (\S+)$", text,
+                                      re.M).group(1)),
+            "launches": json.loads(re.search(r"^\[launches\] (.*)$", text,
+                                             re.M).group(1)),
+            "transport": transport[0] if transport else None,
+            "stages": {m.group(1): m.group(2) for m in re.finditer(
+                r"\] \[([^\]]+)\] (.*(?:MBps\)|seconds))\.$", log_text,
+                re.M)},
+        })
+        out.unlink()
+        log.unlink()
+    res["launches"] = _sum_launches(*(r["launches"] for r in res["ranks"]))
+    say(f"[dist] {tag}: {nprocs} processes, {wall:.3f} s; " + "; ".join(
+        f"rank {r}: {d['wall_s']:.3f} s in the process, launches "
+        f"{d['launches']}, rows cross processes {d['transport']}"
+        for r, d in enumerate(res["ranks"])))
+    for r, d in enumerate(res["ranks"]):
+        for name, span in d["stages"].items():
+            say(f"[dist] {tag} rank {r} stage {name}: {span}")
+    return res
+
+
+def _one_process_mesh(module, name, key, dev, n=DIST_RANKS):
+    """Make the CLI's ``module.name`` take ``LineMesh([dev] * n)`` for its
+    mesh argument ``key``: the one-process reference of a two-process
+    command, with the CLI's own defaults.  -> a restore callable."""
+    orig = getattr(module, name)
+
+    def swapped(*a, **kw):
+        return orig(*a, **{**kw, key: _line_mesh(dev, n)})
+
+    setattr(module, name, swapped)
+    return lambda: setattr(module, name, orig)
+
+
+def _dist_vs_one(tag, argv, out_names, tmp: Path, dev, module, name, key,
+                 res):
+    """``argv + --mesh 2`` in two processes, and through ``cli.main`` in
+    this process on ``LineMesh([dev] * 2)``: every output by SHA-256 alike.
+    -> (both runs' launches, the outputs' SHA-256)."""
+    one, two = tmp / f"{tag}_one", tmp / f"{tag}_two"
+    one.mkdir()
+    two.mkdir()
+    restore = _one_process_mesh(module, name, key, dev)
+    try:
+        n_one, secs, _ = run_cli(f"{tag} --mesh {DIST_RANKS} (one process)",
+                                 argv(one) + ["--mesh", str(DIST_RANKS)],
+                                 "dist")
+    finally:
+        restore()
+    pair = dist_pair(tag, argv(two) + ["--mesh", str(DIST_RANKS)], tmp)
+    shas = {}
+    for n in out_names:
+        shas[n] = sha256_file(one / n)
+        check(sha256_file(two / n) == shas[n],
+              f"{tag}: {n} of two processes != one process, 2 shards")
+    check(sorted(os.listdir(one)) == sorted(os.listdir(two)),
+          f"{tag}: other files in the two runs")
+    check(all(d["transport"] == "through pinned host copies over gloo "
+              "(processes share a card; NCCL refuses two ranks on one GPU)"
+              for d in pair["ranks"]), f"{tag}: transport "
+          f"{[d['transport'] for d in pair['ranks']]}")
+    res[tag] = {"one_process_2_shards_s": secs, "two_processes_s":
+                pair["wall_s"], "ranks_s": [d["wall_s"] for d in
+                                            pair["ranks"]],
+                "launches_two": pair["launches"], "launches_one": n_one}
+    ranks = ", ".join(f"{t:.3f}" for t in res[tag]["ranks_s"])
+    say(f"[dist] {tag}: two processes {pair['wall_s']:.3f} s (ranks "
+        f"{ranks} s in the process) against one process, 2 shards, "
+        f"{secs:.3f} s; outputs equal by SHA-256 {sorted(shas)}")
+    shutil.rmtree(one)
+    shutil.rmtree(two)
+    return [n_one, pair["launches"]], shas
+
+
+def phase_dist_files(dev, tmp: Path, want: dict) -> dict:
+    """Phase 10, the file commands, on phase 5's 16384-line files
+    (``tmp``): ``prestitch --fast --mesh 2`` and the default ``--fast
+    --mesh 2`` in two processes on card 0, every output equal by SHA-256
+    to the one-process ``LineMesh([dev] * 2)`` run; whether they equal
+    phase 5's (``want``) is printed.  -> the launches of these runs."""
+    from opticalimageprocessor_tpu_torch.models import (
+        sharded_align,
+        sharded_prestitch,
+    )
+
+    pan1, pan2, mss = (str(tmp / f"{n}.RAW")
+                       for n in ("CMOS1.PAN", "CMOS2A.PAN", "CMOS1.MSS"))
+    csv = {n: str(tmp / f"{n}.csv")
+           for n in ("pan1", "pan2", *(f"msb{b}" for b in range(1, 5)))}
+    root = tmp / "dist"
+    root.mkdir()
+    res = {}
+
+    def prestitch_argv(out):
+        return ["prestitch", "--fast", "--pan1", pan1, "--pan2", pan2,
+                "--rrc1", csv["pan1"], "--rrc2", csv["pan2"], "-s", "1",
+                "-l", "16000", "--stitch-overlap", str(FOLD_COLS),
+                "--out-dir", str(out), "--device", dev.type]
+
+    def align_argv(out):
+        argv = ["--fast", "--pan", pan1, "--mss", mss, "--do-rrc4pan",
+                "--rrc-pan", csv["pan1"], "--slices", "10",
+                "--ibc-sections", "1", "--out-dir", str(out), "--device",
+                dev.type]
+        for b in range(1, 5):
+            argv += [f"--rrc-msb{b}", csv[f"msb{b}"]]
+        return argv
+
+    l_pst, s_pst = _dist_vs_one(
+        "prestitch --fast", prestitch_argv,
+        ("CMOS1.PAN.RRC.RAW", "CMOS2A.PAN.RRC.RAW",
+         "CMOS2A.PAN.RRC.PRESTT.RAW"), root, dev, sharded_prestitch,
+        "run_sharded_prestitch", "n_devices", res)
+    l_al, s_al = _dist_vs_one(
+        "default --fast", align_argv, ("CMOS1.MSS.ALIGNED.TIFF",), root, dev,
+        sharded_align, "run_sharded_align", "n_devices", res)
+    for n_l in l_pst:
+        check(n_l["rrc"] == 2 * DIST_RANKS and n_l["row_pass"] >= DIST_RANKS,
+              f"prestitch --mesh {DIST_RANKS}: launches {n_l}")
+    for n_l in l_al:
+        check(n_l["rrc"] > 0 and n_l["row_pass"] == 4 * DIST_RANKS,
+              f"default --mesh {DIST_RANKS}: launches {n_l}")
+    same = {"prestt": s_pst["CMOS2A.PAN.RRC.PRESTT.RAW"] == want["prestt"],
+            "aligned": s_al["CMOS1.MSS.ALIGNED.TIFF"] == want["aligned"]}
+    say(f"[dist] files: outputs equal to phase 5's (SHA-256) {same}")
+    say(f"[dist] files {json.dumps(res)}")
+    shutil.rmtree(root)
+    return _sum_launches(*l_pst, *l_al)
+
+
+def phase_dist_scene(dev, tmp: Path, want: dict) -> dict:
+    """Phase 10, the scene, on phase 6's 34816-line files (``tmp``):
+    ``scene --mesh 2 --mss2`` in two processes on card 0 (kernels (a)-(d)
+    in both), every output equal by SHA-256 to the one-process
+    ``LineMesh([dev] * 2)`` run; whether they equal phase 6's (``want``)
+    is printed.  -> the launches of these runs."""
+    from opticalimageprocessor_tpu_torch.models import scene
+
+    files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS", "MSS2")}
+    root = tmp / "dist"
+    root.mkdir()
+    res = {}
+    launches, shas = _dist_vs_one(
+        "scene --mss2", lambda out: scene_argv(files, tmp, out, dev),
+        SCENE_OUTPUTS, root, dev, scene, "run_scene", "mesh", res)
+    for n_l in launches:
+        check(all(n_l[k] > 0 for k in ("rrc", "crosspower", "remap_band",
+                                       "stitch_tail")),
+              f"scene --mesh {DIST_RANKS}: launches {n_l}")
+    same = {n: shas[n] == want[n] for n in SCENE_OUTPUTS}
+    say(f"[dist] scene: outputs equal to phase 6's (SHA-256) {same}")
+    say(f"[dist] scene {json.dumps(res)}")
+    shutil.rmtree(root)
     return _sum_launches(*launches)
 
 
@@ -2860,6 +3139,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="oip_smoke_") as tmp:
         # one log for phases 3, 5 and 6: the logger opens LOGFILE once
         os.environ["LOGFILE"] = os.path.join(tmp, "oip.log")
+        check_graft_entry(dev)
         scene_dir, files_dir = Path(tmp, "scene"), Path(tmp, "files")
         scene_dir.mkdir()
         launches = phase_cli(dev, scene_dir)
@@ -2873,6 +3153,8 @@ def main() -> int:
         files_launches, files_shas = phase_files(dev, files_dir)
         torch.cuda.empty_cache()
         mesh_launches.append(phase_mesh_files(dev, files_dir))
+        torch.cuda.empty_cache()
+        dist_launches = [phase_dist_files(dev, files_dir, files_shas)]
         shutil.rmtree(files_dir)
         torch.cuda.empty_cache()
         stream_dir = Path(tmp, "stream")
@@ -2880,6 +3162,8 @@ def main() -> int:
         stream_launches, stream_shas = phase_stream(dev, power, stream_dir)
         torch.cuda.empty_cache()
         mesh_launches.append(phase_mesh_cli(dev, stream_dir, stream_shas))
+        torch.cuda.empty_cache()
+        dist_launches.append(phase_dist_scene(dev, stream_dir, stream_shas))
         shutil.rmtree(stream_dir)
         torch.cuda.empty_cache()
         parity_dir = Path(tmp, "parity")
@@ -2894,12 +3178,14 @@ def main() -> int:
         shutil.rmtree(downlink_dir)
     mesh_launches = _sum_launches(*mesh_launches)
     say(f"[mesh] launches of phase 9's mesh runs {mesh_launches}")
+    dist_launches = _sum_launches(*dist_launches)
+    say(f"[dist] launches of phase 10's runs (both ranks' and the "
+        f"one-process references') {dist_launches}")
     launches = {k: launches[k] + files_launches[k] + stream_launches[k]
                 + parity_launches[k] + downlink_launches[k]
-                + mesh_launches[k] for k in launches}
+                + mesh_launches[k] + dist_launches[k] for k in launches}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel was never launched in phases 3, 5, 6, 7, 8 and 9: "
-          f"{launches}")
+          f"a kernel was never launched in phases 3 and 5-10: {launches}")
 
     replaces = {
         "rrc": ("opticalimageprocessor_tpu_torch/csrc/rrc.cu",

@@ -18,11 +18,14 @@ PyTorch versions):
 ``--profile DIR`` on the default action, ``prestitch`` and ``scene``
 writes a torch.profiler trace of the run into DIR.  ``--mesh N`` on the
 default action, ``prestitch``, ``scene`` and ``scene --stream`` runs the
-command over an N-device line mesh in this one process (``parallel/``):
-``cuda:0`` ... ``cuda:N-1``, or ``--device cpu --mesh N`` N shards on the
-CPU.  The ``OIP_DIST_*`` launch variables are checked before any work, as
-the JAX CLI checks them, and a multi-process launch is refused.  The
-workflow of docs/sample-task.sh::
+command over an N-device line mesh (``parallel/``): ``cuda:0`` ...
+``cuda:N-1``, or ``--device cpu --mesh N`` N shards on the CPU.  A
+complete set of ``OIP_DIST_*`` launch variables joins a
+``torch.distributed`` process group before any work (a partial set aborts
+the run, as in the JAX CLI); ``--mesh N`` then spans the processes, each
+ingesting and draining only its own shards (``parallel/distributed``;
+``scene --stream --mesh`` is refused there).  The workflow of
+docs/sample-task.sh::
 
     python -m opticalimageprocessor_tpu_torch.cli auxsep \
         KASHI_TJ3-01_20220817_031259_1.dat
@@ -433,12 +436,13 @@ def _scene(argv) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    # the multi-process launch variables, before any work and outside the
-    # error mapping (JAX cli.py:441-448): a misconfigured launch must not
-    # run N independent copies racing on the same output files
-    from .parallel.distributed import check_distributed_env
+    # join the process group of a multi-process launch before any work and
+    # outside the error mapping (JAX cli.py:441-448): a misconfigured
+    # launch must not run N independent copies racing on the same output
+    # files
+    from .parallel.distributed import maybe_initialize_distributed
 
-    check_distributed_env()
+    maybe_initialize_distributed()
     try:
         if argv and argv[0] == "auxsep":
             rc = _auxsep(argv[1:])

@@ -7,8 +7,9 @@ The reader also takes the foreign rasters the reference read through
 OpenCV / GDAL (deflate, PackBits, planar, tiled, big-endian).
 
 Copied from ``opticalimageprocessor_tpu/io/tiff.py`` (the streaming
-writer, ``write_tiff``, ``read_tiff_info``, the readers, and
-``create_tiff_shell`` for the line mesh's offset-write TIFF drain).
+writer, ``write_tiff``, ``read_tiff_info``, the readers, and for the line
+mesh's offset-write drains ``create_tiff_shell``, ``tiff_data_start``,
+``encode_lzw_strip`` and ``assemble_tiff_from_strips``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,13 @@ def auto_bigtiff(width: int, height: int, samples: int = 1) -> bool:
     projected raster size is within 16 MiB of the 4 GiB classic-TIFF
     offset ceiling."""
     return width * height * samples * 2 >= (1 << 32) - (1 << 24)
+
+
+def tiff_data_start(width: int, height: int, samples: int = 1) -> int:
+    """Byte offset of raster row 0 in an uncompressed shell made by
+    ``create_tiff_shell`` under the auto BigTIFF decision: only the
+    8-byte classic / 16-byte BigTIFF header precedes the raster."""
+    return 16 if auto_bigtiff(width, height, samples) else 8
 
 
 def _predict2_encode(strip: np.ndarray) -> np.ndarray:
@@ -255,6 +263,64 @@ class TiffStripWriter:
             f.write(struct.pack("<I", 0))
             f.seek(4)
             f.write(struct.pack("<I", ifd_pos))
+
+
+def encode_lzw_strip(strip: np.ndarray, predictor: bool = True) -> bytes:
+    """Encode one (rows, W, S) uint16 strip exactly as
+    :meth:`TiffStripWriter._emit_strip` does (predictor-2 differencing then
+    native LZW) — the per-strip unit of work the multi-host compressed
+    drain (parallel/distributed.py) parallelises across processes.  TIFF
+    strips are independently compressed, so per-process encoding composes
+    into the same streams the sequential writer emits."""
+    if predictor:
+        strip = _predict2_encode(strip)
+    enc = native.lzw_encode(np.ascontiguousarray(strip).tobytes())
+    if enc is None:
+        raise RuntimeError("LZW requested but unavailable")
+    return enc
+
+
+def assemble_tiff_from_strips(
+    path: str,
+    width: int,
+    height: int,
+    samples: int,
+    strip_blobs,
+    rows_per_strip: int = 512,
+    predictor: bool = True,
+    bigtiff: bool | None = None,
+    photometric: int | None = None,
+    extrasamples: int | None = None,
+) -> None:
+    """Assemble a final LZW TIFF from already-encoded strip payloads.
+
+    ``strip_blobs`` iterates the compressed strips in raster order (e.g.
+    streamed from per-process segment files); header + strips + IFD come
+    out identical to a sequential :class:`TiffStripWriter` run that
+    compressed the same strips — strip offsets are assignable once the
+    compressed sizes are known (the reference's GDAL writer has no such
+    mode; it serialises compression, imageop.h:470-474).
+    """
+    w = TiffStripWriter(
+        path, width, height, samples,
+        rows_per_strip=rows_per_strip, compression="lzw",
+        predictor=predictor, bigtiff=bigtiff, photometric=photometric,
+        extrasamples=extrasamples,
+    )
+    if w.comp != COMPRESSION_LZW:
+        raise RuntimeError("LZW assembly requested but LZW unavailable")
+    n_strips = -(-height // rows_per_strip)
+    for blob in strip_blobs:
+        w._offsets.append(w._f.tell())
+        w._counts.append(len(blob))
+        w._f.write(blob)
+    if len(w._offsets) != n_strips:
+        raise ValueError(
+            f"assembled {len(w._offsets)} strips, expected {n_strips}"
+        )
+    w._rows_written = height
+    w._write_ifd()
+    w._f.close()
 
 
 def create_tiff_shell(

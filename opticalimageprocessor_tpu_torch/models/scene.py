@@ -216,7 +216,10 @@ def _run_scene(
     the scene on the shards through :class:`~.device_pipeline.
     ScenePipeline` / :class:`~.device_pipeline.MssAlign`, and the rasters
     drain shard by shard at their rows' offsets (``parallel/distributed``):
-    the same files, byte for byte, on any mesh at the same estimates."""
+    the same files, byte for byte, on any mesh at the same estimates.
+    Under several processes (``OIP_DIST_*``) the mesh spans them, each
+    process ingests and drains its own shards, and a run without a mesh
+    raises JAX's message."""
     from ..parallel.distributed import (
         drain_line_sharded_to_raw,
         drain_line_sharded_to_tiff,
@@ -224,8 +227,18 @@ def _run_scene(
     from ..parallel.sharded import ingest_line_sharded
     from ..parallel.sharded_scene import ShardedMssAlign, ShardedScene
 
+    from ..parallel.distributed import process_count
+
     if mss2_file:
         check_tiff_output(out_stitched_mss)
+    if process_count() > 1 and not mesh:
+        # without a mesh every process would run the whole scene
+        # redundantly and race on the same output files
+        raise RuntimeError(
+            f"multi-host scene run ({process_count()} processes) "
+            "requires --mesh N so strips shard across the processes' "
+            "devices and each process drains only its own rows"
+        )
     sharded = resolve_mesh(mesh, device)
     mesh = sharded or LineMesh([resolve_device(device)])
     # the kx/ky contractions are float32 matmuls, as the JAX package runs
@@ -325,9 +338,10 @@ def _run_scene(
     foldm_half = mss_fold_half(fold_cols)
     half = band_px - foldm_half
     stitched_mss = LineSharded(mesh, [
-        torch.cat([a[:, :half], b[:, foldm_half:]], dim=1)
+        None if a is None else torch.cat([a[:, :half], b[:, foldm_half:]],
+                                         dim=1)
         for a, b in zip(aligned.shards, aligned2.shards)
-    ])
+    ], 0, aligned.edges)
     del aligned, aligned2
     out_stitched_mss = out_stitched_mss or default_stitched_mss_path(out_dir)
     with stage("scene_write_stitched_mss",

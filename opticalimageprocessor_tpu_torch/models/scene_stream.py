@@ -351,6 +351,16 @@ def _run_scene_streamed(
     section (no collectives), so the outputs are the single-device
     stream's byte for byte.  The estimate, which reads sampled windows
     only, runs on the mesh's first device."""
+    from ..parallel.distributed import process_count
+
+    if mesh and process_count() > 1:
+        # the streamed mesh runs whole sections in one process; a mesh
+        # spanning processes cannot give them (JAX reads them through
+        # np.asarray, models/scene_stream.py:762)
+        raise RuntimeError(
+            f"scene --stream --mesh under {process_count()} processes: the "
+            "streamed route runs in one process (run scene --mesh N "
+            "without --stream across processes)")
     if mss2_file:
         check_tiff_output(out_stitched_mss)
     _check_section_rows(section_rows)

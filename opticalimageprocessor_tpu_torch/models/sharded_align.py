@@ -10,7 +10,10 @@ raster of the fast route's semantics -- run over an N-device line mesh
 * the strips go shard by shard from the memory-mapped RAW files to the
   devices, so the host holds one shard at a time;
 * the ALIGNED.TIFF (and with ``write_rrcpan`` the RRC TIFF of the PAN) is
-  drained shard by shard at the rows' offsets.
+  drained shard by shard at the rows' offsets;
+* under several processes (``parallel/distributed``) each process ingests
+  and drains its own shards, and ``write_tiff=False`` all-gathers the
+  raster, so every process returns the same array.
 """
 
 from __future__ import annotations
@@ -130,6 +133,8 @@ def run_sharded_align(
     total_rows = mss.lines - line_offset
     start = 0 if keep_leading_lines else section_overlap
     if not write_tiff:
+        # on a mesh spanning processes an all-gather: every process
+        # returns the whole raster (JAX replicates it over the mesh)
         return np.asarray(aligned.gather("cpu").numpy())[start:total_rows]
 
     path = build_output_file_path(

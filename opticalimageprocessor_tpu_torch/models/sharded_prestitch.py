@@ -10,12 +10,14 @@ semantics -- run over an N-device line mesh
 (``parallel/sharded.make_prestitch_step``):
 
 * the PAN strips go shard by shard from the memory-mapped RAW files to the
-  devices;
+  devices (under several processes, each process reads its own shards);
 * the RRC runs on each shard (kernel (a)); the ``.RRC.RAW`` files are
   drained shard by shard in line order (the reference's DoRRC files,
   stitcher.h:141-146);
 * the constant-shift resample runs on each shard with its neighbours'
-  halo rows (kernel (e)), then drains to ``.PRESTT.RAW``.
+  halo rows (kernel (e)), then drains to ``.PRESTT.RAW``;
+* under several processes each process writes its own rows of each file
+  (``parallel/distributed`` drains).
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def run_sharded_prestitch(
     """Run the sharded prestitch; returns (delta_x, delta_y, prestt_path,
     None with ``only_calculate``).  ``n_devices``: the mesh, a device count
     or an explicit :class:`~..parallel.mesh.LineMesh`."""
-    mesh_dev = (n_devices.devices[0] if isinstance(n_devices, LineMesh)
+    mesh_dev = (n_devices.first if isinstance(n_devices, LineMesh)
                 else device)
     # the host Stitcher's geometry and size checks
     st = Stitcher(pan1, pan2, rrc1, rrc2, sections, line_per_section,

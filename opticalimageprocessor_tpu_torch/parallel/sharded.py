@@ -22,6 +22,12 @@ Semantics, as in JAX: the resample sees true neighbour rows at shard seams
 and border 0 at the strip ends -- the unsectioned result; the reference's
 section-seam artifacts (preproc.h:428-457) are the parity route's.
 Shards may be uneven: no row is padding, so no pad row is ever masked.
+
+On a mesh spanning processes each process ingests and computes its own
+shards and its own blocks of tiles; the tile rows and halos come through
+``LineSharded.fetch`` and the per-tile statistics are all-gathered in tile
+order (``distributed.all_gather_list``), so every process fits the same
+coefficients from the same bytes.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ..constants import (
 )
 from ..ops import phasecorr, polyfit, resample
 from ..ops.rrc import rrc_apply
+from .distributed import all_gather_list
 from .halo import clipped_halo
 from .mesh import LineMesh, LineSharded, pad_to_multiple
 
@@ -63,11 +70,14 @@ def ingest_line_sharded(mesh: LineMesh, view, rows_axis: int = 0,
     """Shard-by-shard ingest of a host array view (a memory map) or a
     tensor onto the mesh: each shard's rows (:func:`shard_bounds`) are
     read and copied to its device in turn, so the host holds one shard at
-    a time."""
+    a time.  Only this process's shards are read."""
     rows = view.shape[rows_axis]
+    bounds = shard_bounds(rows, len(mesh), unit)
     shards = []
-    for (a, b), dev in zip(shard_bounds(rows, len(mesh), unit),
-                           mesh.devices):
+    for (a, b), dev in zip(bounds, mesh.devices):
+        if dev is None:
+            shards.append(None)
+            continue
         if isinstance(view, torch.Tensor):
             shards.append(view.narrow(rows_axis, a, b - a).to(dev))
             continue
@@ -75,7 +85,8 @@ def ingest_line_sharded(mesh: LineMesh, view, rows_axis: int = 0,
         idx[rows_axis] = slice(a, b)
         # a copy: a memory map's rows are read-only and stay mapped
         shards.append(torch.from_numpy(np.array(view[tuple(idx)])).to(dev))
-    return LineSharded(mesh, shards, rows_axis)
+    return LineSharded(mesh, shards, rows_axis,
+                       [a for a, _ in bounds] + [rows])
 
 
 def as_line_sharded(mesh: LineMesh, x, rows_axis: int = 0,
@@ -110,6 +121,8 @@ def interleave(bands: list[LineSharded]) -> LineSharded:
     by shard on each shard's device."""
     def stack(i, dev):
         t0 = bands[0].shards[i]
+        if t0 is None:
+            return None
         out = torch.empty((*t0.shape, len(bands)), dtype=t0.dtype,
                           device=dev)
         for k, band in enumerate(bands):
@@ -118,7 +131,8 @@ def interleave(bands: list[LineSharded]) -> LineSharded:
 
     mesh = bands[0].mesh
     return LineSharded(mesh, [stack(i, dev)
-                              for i, dev in enumerate(mesh.devices)], 0)
+                              for i, dev in enumerate(mesh.devices)], 0,
+                       bands[0].edges)
 
 
 def remap_band_dynamic(band: LineSharded, coeff_x, coeff_y,
@@ -132,23 +146,35 @@ def remap_band_dynamic(band: LineSharded, coeff_x, coeff_y,
     whole-strip remap: every output row reads true rows, or 0 past a strip
     end."""
     out = []
-    for (win, top), dev, (a, b) in zip(
-        clipped_halo(band, row_bound + 1, row_bound + 2), band.mesh.devices,
+    for (win, top), (a, b) in zip(
+        clipped_halo(band, row_bound + 1, row_bound + 2),
         map(band.bounds, range(len(band.shards))),
     ):
-        if a == b:
+        if win is None or a == b:
             out.append(win)
             continue
         res = resample.remap_band_fast(
             win, coeff_x, coeff_y, row_bound,
             chunk_rows=resample.STAGED_CHUNK_ROWS)
         out.append(res[top:top + b - a])
-    return LineSharded(band.mesh, out, 0)
+    return LineSharded(band.mesh, out, 0, band.edges)
 
 
 def auto_sections(lines_pan: int) -> int:
     """Largest reference-legal section count <= the default 5."""
     return max(1, min(IBCV_DEF_SECTIONS, lines_pan // CORRELATION_LINES))
+
+
+def tile_runs(blocks, slices):
+    """``(device, section, first slice, end slice)`` of each run of tiles
+    of one section in the contiguous tile blocks (``blocks[d]``: device
+    ``d``'s ``[t0, t1)``), in block order."""
+    runs = []
+    for d, (t0, t1) in enumerate(blocks):
+        for sec in range(t0 // slices, -(-t1 // slices)):
+            runs.append((d, sec, max(t0 - sec * slices, 0),
+                         min(t1 - sec * slices, slices)))
+    return runs
 
 
 def _correlate_file_tiles(pan_c: LineSharded, mss_c: LineSharded, r0s, br0s,
@@ -158,25 +184,28 @@ def _correlate_file_tiles(pan_c: LineSharded, mss_c: LineSharded, r0s, br0s,
     ``PreProcessor`` correlates them, one tile (its 4 bands) a batch: an
     FFT's last bits may depend on its batch, and this way they do not
     depend on the mesh.  -> numpy (dx, dy, rs), each (T * 4,) tile-major
-    then band (the host table's order)."""
+    then band (the host table's order), on every process."""
     from ..models.preprocessor import _correlate_tiles
 
     mesh = pan_c.mesh
+    runs = tile_runs(tile_blocks(len(r0s) * slices, len(mesh)), slices)
+    pan_blks = pan_c.fetch([(d, r0s[sec], r0s[sec] + base_rows,
+                             (i0 * cols, i1 * cols))
+                            for d, sec, i0, i1 in runs])
+    band_blks = mss_c.fetch([(d, br0s[sec], br0s[sec] + band_rows,
+                              (i0 * band_cols, i1 * band_cols))
+                             for d, sec, i0, i1 in runs])
     stats = []
-    for (t0, t1), dev in zip(tile_blocks(len(r0s) * slices, len(mesh)),
-                             mesh.devices):
-        for sec in range(t0 // slices, -(-t1 // slices)):
-            i0 = max(t0 - sec * slices, 0)
-            i1 = min(t1 - sec * slices, slices)
-            pan_blk = pan_c.rows_on(r0s[sec], r0s[sec] + base_rows, dev,
-                                    cols=(i0 * cols, i1 * cols))
-            band_blk = mss_c.rows_on(br0s[sec], br0s[sec] + band_rows, dev,
-                                     cols=(i0 * band_cols, i1 * band_cols))
-            for i in range(i1 - i0):
-                stats.append(_correlate_tiles(
-                    pan_blk[None, :, i * cols:(i + 1) * cols],
-                    band_blk[:, :, i * band_cols:(i + 1) * band_cols],
-                    MSS_BANDS))
+    for (d, sec, i0, i1), pan_blk, band_blk in zip(runs, pan_blks,
+                                                    band_blks):
+        if pan_blk is None:
+            continue
+        for i in range(i1 - i0):
+            stats.append(_correlate_tiles(
+                pan_blk[None, :, i * cols:(i + 1) * cols],
+                band_blk[:, :, i * band_cols:(i + 1) * band_cols],
+                MSS_BANDS))
+    stats = all_gather_list(mesh, stats)
     return tuple(np.concatenate([s[k] for s in stats]) for k in range(3))
 
 
@@ -197,6 +226,9 @@ def plan_remap_sharded(mss_c: LineSharded, coeff_x, coeff_y,
     bottom = max(p.halo_bottom for p in plans)
     out = []
     for i, (win, t) in enumerate(clipped_halo(mss_c, top, bottom)):
+        if win is None:
+            out.append(None)
+            continue
         a, b = mss_c.bounds(i)
         res = torch.empty((b - a, width, MSS_BANDS), dtype=torch.uint16,
                           device=win.device)
@@ -204,7 +236,7 @@ def plan_remap_sharded(mss_c: LineSharded, coeff_x, coeff_y,
             res[..., k].copy_(resample.remap_section_u16(
                 win[k], plans[k], first=t, count=b - a, origin=a - t))
         out.append(res)
-    return LineSharded(mss_c.mesh, out, 0)
+    return LineSharded(mss_c.mesh, out, 0, mss_c.edges)
 
 
 def make_align_step(
@@ -303,19 +335,23 @@ def make_prestitch_step(
         pan2 = as_line_sharded(mesh, pan2)
         lines, width = real_lines or pan1.rows, pan1.shape[1]
         offs = stt_offsets(lines, sections, line_per_section)
+        plan = [(d, o, o + line_per_section)
+                for d, (s0, s1) in enumerate(tile_blocks(sections, len(mesh)))
+                for o in offs[s0:s1]]
+        win1, win2 = (strip.fetch([(d, a, b, c) for d, a, b in plan])
+                      for strip, c in (
+                          (pan1, (width - overlap_cols, width - edge_cols)),
+                          (pan2, (edge_cols, overlap_cols))))
         stats = []
-        for (s0, s1), dev in zip(tile_blocks(sections, len(mesh)),
-                                 mesh.devices):
-            for o in offs[s0:s1]:
-                # one section a batch, as the tiles of the align step
-                t1, t2 = (strip.rows_on(o, o + line_per_section, dev,
-                                        cols=c)[None].to(torch.float32)
-                          for strip, c in (
-                              (pan1, (width - overlap_cols,
-                                      width - edge_cols)),
-                              (pan2, (edge_cols, overlap_cols))))
-                stats.append([v.cpu().numpy() for v in
-                              phasecorr.phase_correlate_batch(t1, t2)])
+        for t1, t2 in zip(win1, win2):
+            if t1 is None:
+                continue
+            # one section a batch, as the tiles of the align step
+            stats.append([v.cpu().numpy() for v in
+                          phasecorr.phase_correlate_batch(
+                              t1[None].to(torch.float32),
+                              t2[None].to(torch.float32))])
+        stats = all_gather_list(mesh, stats)
         return tuple(np.concatenate([s[k] for s in stats]) for k in range(3))
 
     def rrc(strip, params):

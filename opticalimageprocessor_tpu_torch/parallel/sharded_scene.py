@@ -7,14 +7,19 @@ with the port's single-device modules doing the per-device work:
   they are cut (kernel (a)), and spread over the devices in contiguous
   blocks of tiles (JAX's tile axis); each block goes through
   ``device_pipeline.correlate_tiles`` on its device (cuFFT and kernel
-  (b)), the (dx, dy, response) statistics are gathered to the first
-  device and fitted there (``fit_tiles``); the stt windows are spread the
-  same way and averaged on the first device (``stt_peaks``,
-  ``stt_average``);
+  (b)), the (dx, dy, response) statistics are gathered in tile order to
+  the first device of every process and fitted there (``fit_tiles``), so
+  the estimates are replicated; the stt windows are spread the same way
+  and averaged alike (``stt_peaks``, ``stt_average``);
 * transform: every shard, with its neighbours' halo rows copied onto its
   device, goes through ``ScenePipeline.transform`` (kernels (a), (c) at
   row bound 3, (d)) or ``MssAlign.remap`` (kernel (c) at row bound 6), and
   keeps its own rows.
+
+On a mesh spanning processes each process runs its own shards and its
+own blocks of tiles: the tile rows and halo windows come through
+``LineSharded.fetch``, the statistics through ``distributed.
+all_gather_list`` (host copies, bit for bit).
 
 The halos are clipped at the strip ends, as the streamed route cuts its
 sections: kernels (c) and (d) read 0 past the edges of their input after
@@ -29,6 +34,7 @@ cuFFT may choose other plans for other batch sizes.
 from __future__ import annotations
 
 import copy
+import itertools
 
 import torch
 
@@ -45,14 +51,27 @@ from ..models.device_pipeline import (
     stt_peaks,
 )
 from ..ops.rrc import rrc_apply
+from .distributed import all_gather_list
 from .halo import clipped_halo
 from .mesh import LineMesh, LineSharded
-from .sharded import as_line_sharded, tile_blocks
+from .sharded import as_line_sharded, tile_blocks, tile_runs
 
 
 def _per_device(module, mesh: LineMesh) -> dict:
-    """A copy of ``module`` on each distinct device of the mesh."""
+    """A copy of ``module`` on each distinct device of this process."""
     return {dev: copy.deepcopy(module).to(dev) for dev in mesh.distinct()}
+
+
+def _gather_to_first(mesh: LineMesh, outs: list) -> tuple:
+    """Per-block tuples of (n,) statistics -> the tuple of their
+    concatenations in block order on this process's first device: moved
+    there directly in one process, all-gathered through host copies
+    across processes."""
+    first = mesh.first
+    if mesh.spans_processes:
+        outs = all_gather_list(mesh, [[t.cpu() for t in o] for o in outs])
+    return tuple(torch.cat([o[k].to(first) for o in outs])
+                 for k in range(len(outs[0])))
 
 
 def correlate_sharded(geom, pan: LineSharded, mss: LineSharded,
@@ -62,24 +81,29 @@ def correlate_sharded(geom, pan: LineSharded, mss: LineSharded,
     mss_k, mss_b)}``) is given -- each tile is then RRC'd as it is cut --
     or already corrected.  Device ``d`` takes tiles ``tile_blocks(T,
     N)[d]`` (section-major, slice-minor), cut from the shards that hold
-    their rows.  -> (dx, dy, rs), each (T, 4), on the mesh's first
-    device."""
+    their rows.  -> (dx, dy, rs), each (T, 4), on this process's first
+    device (every process's)."""
     mesh = pan.mesh
-    first = mesh.devices[0]
-    outs = []
-    for (t0, t1), dev in zip(
-            tile_blocks(geom.n_sections * geom.slices, len(mesh)),
-            mesh.devices):
-        pan_tiles, band_tiles = [], []
-        for sec in range(t0 // geom.slices, -(-t1 // geom.slices)):
-            i0 = max(t0 - sec * geom.slices, 0)
-            i1 = min(t1 - sec * geom.slices, geom.slices)
+    runs = tile_runs(tile_blocks(geom.n_sections * geom.slices, len(mesh)),
+                      geom.slices)
+    pan_blks = pan.fetch([
+        (d, geom.row0(sec), geom.row0(sec) + geom.corr_rows,
+         (i0 * geom.cols, i1 * geom.cols)) for d, sec, i0, i1 in runs])
+    band_blks = mss.fetch([
+        (d, geom.row0(sec) // MSS_BANDS,
+         geom.row0(sec) // MSS_BANDS + geom.brows,
+         (i0 * geom.cols // MSS_BANDS, i1 * geom.cols // MSS_BANDS))
+        for d, sec, i0, i1 in runs])
+    outs, pan_tiles, band_tiles = [], [], []
+    # the runs come device by device; a block is correlated before the
+    # next block's rows are fetched (one process: copied as taken), so
+    # one block's tiles are alive at a time (next(), not a zip, which would
+    # keep an earlier run's rows in its result tuple)
+    for k, (d, _sec, i0, i1) in enumerate(runs):
+        pan_blk, band_blk = next(pan_blks), next(band_blks)
+        dev = mesh.devices[d]
+        if dev is not None:
             c0, c1 = i0 * geom.cols, i1 * geom.cols
-            r0 = geom.row0(sec)
-            pan_blk = pan.rows_on(r0, r0 + geom.corr_rows, dev, (c0, c1))
-            band_blk = mss.rows_on(r0 // MSS_BANDS,
-                                   r0 // MSS_BANDS + geom.brows, dev,
-                                   (c0 // MSS_BANDS, c1 // MSS_BANDS))
             pp = mp = None
             if params is not None:
                 pk, pb, mk, mb = params[dev]
@@ -90,10 +114,10 @@ def correlate_sharded(geom, pan: LineSharded, mss: LineSharded,
                 pan_blk, pp, 0, geom.corr_rows, geom.cols, i1 - i0))
             band_tiles.append(_section_tiles(
                 band_blk, mp, 0, geom.brows, geom.bcols, i1 - i0))
-        if pan_tiles:
-            outs.append([t.to(first) for t in correlate_tiles(
-                geom, pan_tiles, band_tiles, win)])
-    return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+        if pan_tiles and (k + 1 == len(runs) or runs[k + 1][0] != d):
+            outs.append(correlate_tiles(geom, pan_tiles, band_tiles, win))
+            pan_tiles, band_tiles = [], []
+    return _gather_to_first(mesh, outs)
 
 
 def stt_sharded(pan1: LineSharded, pan2: LineSharded, sections: int = 10,
@@ -102,25 +126,29 @@ def stt_sharded(pan1: LineSharded, pan2: LineSharded, sections: int = 10,
                 max_delta_y: float = 0.0, win=(64, 64)):
     """``device_pipeline.stt_estimate_fast`` on line-sharded strips: the
     overlap windows of a contiguous block of sections on each device, the
-    peaks gathered to the first device and averaged there.  -> (delta_x,
-    delta_y, response, n_valid) 0-d tensors."""
+    peaks gathered to the first device of every process and averaged
+    there.  -> (delta_x, delta_y, response, n_valid) 0-d tensors."""
     mesh = pan1.mesh
-    first = mesh.devices[0]
     width = pan1.shape[1]
     lps, offs = stt_geometry(pan1.rows, sections, line_per_section)
     ow = overlap_cols - edge_cols
     c1 = width - overlap_cols
-    outs = []
-    for (s0, s1), dev in zip(tile_blocks(sections, len(mesh)),
-                             mesh.devices):
-        if s0 == s1:
-            continue
-        t1, t2 = (torch.stack([strip.rows_on(o, o + lps, dev, cols)
-                               for o in offs[s0:s1]]).to(torch.float32)
+    plan = [(d, o, o + lps)
+            for d, (s0, s1) in enumerate(tile_blocks(sections, len(mesh)))
+            for o in offs[s0:s1]]
+    win1, win2 = (strip.fetch([(d, a, b, cols) for d, a, b in plan])
                   for strip, cols in ((pan1, (c1, c1 + ow)),
                                       (pan2, (edge_cols, edge_cols + ow))))
-        outs.append([t.to(first) for t in stt_peaks(t1, t2, win)])
-    peaks = (torch.cat([o[k] for o in outs]) for k in range(3))
+    outs = []
+    for d, group in itertools.groupby(zip(plan, win1, win2),
+                                      key=lambda g: g[0][0]):
+        group = list(group)
+        if mesh.devices[d] is None:
+            continue
+        t1, t2 = (torch.stack([g[k] for g in group]).to(torch.float32)
+                  for k in (1, 2))
+        outs.append(stt_peaks(t1, t2, win))
+    peaks = _gather_to_first(mesh, outs)
     return stt_average(*peaks, threshold, max_delta_y)
 
 
@@ -154,7 +182,7 @@ class ShardedScene:
 
     def estimate(self, pan1, pan2, mss):
         """-> (cx (4, 2), cy (4, 3), n_valid (4,), raw_dx, raw_dy, n_stt)
-        on the mesh's first device."""
+        on this process's first device (every process's)."""
         pan1, pan2, mss = self._shard(pan1, pan2, mss)
         p = self.pipe
         geom = register_geometry(pan1.rows, pan1.shape[1], p.slices,
@@ -177,13 +205,19 @@ class ShardedScene:
         raw_dx, raw_dy = float(raw_dx), float(raw_dy)
         halo_p = p.prestt_row_bound + 2
         halo_b = p.row_bound + 2
+        n_out = 3 if p.return_prestt else 2
         outs = []
+        windows = (pan1.windows(halo_p, halo_p), pan2.windows(halo_p, halo_p),
+                   mss.windows(halo_b, halo_b))
         for i, dev in enumerate(self.mesh.devices):
-            (p1, top), (p2, _) = pan1.window(i, halo_p, halo_p), \
-                pan2.window(i, halo_p, halo_p)
-            bands, top_b = mss.window(i, halo_b, halo_b)
+            # one shard's windows alive at a time (next(), not a zip,
+            # which would keep an earlier shard's in its result tuple)
+            (p1, top), (p2, _), (bands, top_b) = (next(w) for w in windows)
             a, b = pan1.bounds(i)
             ab, bb = mss.bounds(i)
+            if dev is None:
+                outs.append([None] * n_out)
+                continue
             if a == b:
                 outs.append(self._empty(dev, pan1.shape[1], bands.shape[-1]))
                 continue
@@ -191,8 +225,9 @@ class ShardedScene:
                                             cy.to(dev), raw_dx, raw_dy)
             outs.append([res[0][top_b:top_b + bb - ab],
                          *(t[top:top + b - a] for t in res[1:])])
-        return tuple(LineSharded(self.mesh, [o[k] for o in outs], 0)
-                     for k in range(len(outs[0])))
+        return tuple(LineSharded(self.mesh, [o[k] for o in outs], 0,
+                                 mss.edges if k == 0 else pan1.edges)
+                     for k in range(n_out))
 
     def _empty(self, dev, width, band_px):
         u16 = torch.uint16
@@ -234,13 +269,16 @@ class ShardedMssAlign:
         for i, ((win, top), dev) in enumerate(
                 zip(clipped_halo(mss_c, halo, halo), self.mesh.devices)):
             a, b = mss_c.bounds(i)
+            if dev is None:
+                out.append(None)
+                continue
             if a == b:
                 out.append(torch.empty((0, win.shape[-1], MSS_BANDS),
                                        dtype=torch.uint16, device=dev))
                 continue
             res = self.aligns[dev].remap(win, cx.to(dev), cy.to(dev))
             out.append(res[top:top + b - a])
-        return LineSharded(self.mesh, out, 0)
+        return LineSharded(self.mesh, out, 0, mss_c.edges)
 
     def forward(self, pan_c, mss):
         """``pan_c`` (L, W) corrected PAN, ``mss`` (4, L/4, W/4) RAW

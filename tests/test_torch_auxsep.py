@@ -13,8 +13,8 @@ import sys
 
 import numpy as np
 import pytest
+from torch_jax_cli import jax_cli_main
 
-from opticalimageprocessor_tpu import cli as jcli
 from opticalimageprocessor_tpu.formats import aos as jaos
 from opticalimageprocessor_tpu.formats import crc16 as jcrc
 from opticalimageprocessor_tpu.formats import naming as jnaming
@@ -421,9 +421,9 @@ def test_cli_auxsep_matches_jax(downlink, tmp_path, extra, rc):
     a restart at AOS frame 8, where the 880-byte payloads never realign
     with the 882-byte IMTR frames (no valid IMTR frame: rc 2)."""
     outs = {}
-    for mod, d in ((cli, "port"), (jcli, "jax")):
+    for main, d in ((cli.main, "port"), (jax_cli_main, "jax")):
         (tmp_path / d).mkdir()
-        assert mod.main(["auxsep", *extra, downlink["path"], "--out-dir",
+        assert main(["auxsep", *extra, downlink["path"], "--out-dir",
                          str(tmp_path / d)]) == rc
         outs[d] = {f: (tmp_path / d / f).read_bytes()
                    for f in sorted(os.listdir(tmp_path / d))}
@@ -441,4 +441,4 @@ def test_cli_auxsep_exit_codes_match_jax(tmp_path, case, rc):
     if case == "unrecognized_name":
         p.write_bytes(bytes(4096))
     argv = ["auxsep", str(p), "--out-dir", str(tmp_path)]
-    assert cli.main(argv) == jcli.main(argv) == rc
+    assert cli.main(argv) == jax_cli_main(argv) == rc

@@ -136,6 +136,33 @@ def test_tiff_writers_equal_the_originals(rng, tmp_path, samples, compression,
                                   img)
 
 
+@pytest.mark.parametrize("samples", [1, 4])
+def test_offset_drain_tiff_helpers_equal_the_originals(rng, tmp_path,
+                                                       samples):
+    """The drains' TIFF helpers: ``tiff_data_start`` (classic and BigTIFF
+    sizes), ``encode_lzw_strip`` (with and without the predictor) and
+    ``assemble_tiff_from_strips`` (the file from encoded strips) give the
+    originals' values and bytes."""
+    for w, h in ((33, 70), (12288, 65536), (3072, 131072)):
+        assert ttiff.tiff_data_start(w, h, samples) == \
+            jtiff.tiff_data_start(w, h, samples)
+    img = rng.integers(0, 4096, (70, 33, samples), dtype=np.uint16)
+    strips = [img[a:a + 16] for a in range(0, 70, 16)]
+    for predictor in (True, False):
+        blobs = [ttiff.encode_lzw_strip(s, predictor) for s in strips]
+        assert blobs == [jtiff.encode_lzw_strip(s, predictor)
+                         for s in strips]
+        for mod, name in ((jtiff, "j.TIFF"), (ttiff, "t.TIFF")):
+            mod.assemble_tiff_from_strips(
+                str(tmp_path / name), 33, 70, samples, iter(blobs),
+                rows_per_strip=16, predictor=predictor)
+        assert (tmp_path / "t.TIFF").read_bytes() == \
+            (tmp_path / "j.TIFF").read_bytes()
+        np.testing.assert_array_equal(
+            ttiff.read_tiff(str(tmp_path / "t.TIFF")).reshape(img.shape),
+            img)
+
+
 def test_stage_logs_the_original_lines():
     """``stage`` logs the reference's ``[name] <bytes> bytes in <s> seconds
     (<MBps> MBps).`` line and accumulates the same report fields."""

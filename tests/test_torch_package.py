@@ -27,6 +27,7 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.formats.crc16",
     "opticalimageprocessor_tpu_torch.formats.naming",
     "opticalimageprocessor_tpu_torch.formats.rrc_csv",
+    "opticalimageprocessor_tpu_torch.graft_entry",
     "opticalimageprocessor_tpu_torch.io",
     "opticalimageprocessor_tpu_torch.io.raw",
     "opticalimageprocessor_tpu_torch.io.streaming",
@@ -121,6 +122,41 @@ def test_port_cli_runs_without_the_jax_package(tmp_path):
     out = np.fromfile(tmp_path / "O.RAW", dtype=np.uint16).reshape(4, -1)
     np.testing.assert_array_equal(out[:, :12286], a[:, :12286])
     np.testing.assert_array_equal(out[:, 12286:], a[:, 2:])
+
+
+def test_port_process_group_runs_without_jax(tmp_path):
+    """Joined to a process group (a complete ``OIP_DIST_*`` set of one
+    process), the port builds a line mesh, runs ``graft_entry``'s entry
+    and dry run and drains through the multi-process drains without
+    loading ``jax`` or the JAX package (``torch.distributed`` only)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mods = _port_sys_modules(
+        "import os\n"
+        f"os.environ.update(OIP_DIST_COORD='127.0.0.1:{port}', "
+        "OIP_DIST_NPROCS='1', OIP_DIST_PROCID='0', "
+        f"LOGFILE={str(tmp_path / 'oip.log')!r})\n"
+        "from opticalimageprocessor_tpu_torch import graft_entry\n"
+        "from opticalimageprocessor_tpu_torch.parallel import distributed\n"
+        "from opticalimageprocessor_tpu_torch.parallel import sharded\n"
+        "from opticalimageprocessor_tpu_torch.parallel.mesh import "
+        "line_mesh\n"
+        "assert distributed.maybe_initialize_distributed()\n"
+        "fn, args = graft_entry.entry()\n"
+        "assert tuple(fn(*args, device='cpu').shape) == (512, 3072)\n"
+        "graft_entry.dryrun_multichip(2)\n"
+        "x = sharded.ingest_line_sharded(line_mesh(2, 'cpu'), args[0])\n"
+        f"distributed.drain_line_sharded_to_tiff_lzw(x, "
+        f"{str(tmp_path / 'x.TIFF')!r}, rows_per_strip=64)\n"
+        "bad = sorted(m for m in __import__('sys').modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+    )
+    assert mods == "[]", mods
+    assert (tmp_path / "x.TIFF").stat().st_size > 0
 
 
 def test_run_scene_cuda_without_cuda_raises(monkeypatch):

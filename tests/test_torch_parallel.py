@@ -719,16 +719,22 @@ def test_cli_fails_loudly_on_a_partial_distributed_env(env, drop, names,
 
 
 def test_cli_refuses_a_complete_distributed_env(tmp_path):
-    """A complete OIP_DIST_* env is refused as not ported: one process
-    runs, never N racing copies."""
+    """A complete OIP_DIST_* env whose peer never joins is refused within
+    the join timeout (OIP_DIST_TIMEOUT_S): a non-zero rc, no output -- one
+    process never runs alone in place of N, and never hangs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
     a = tmp_path / "L.RAW"
     np.zeros((4, 12288), np.uint16).tofile(a)
     out = tmp_path / "O.RAW"
     res = _run_cli_subprocess(
-        {"OIP_DIST_COORD": "127.0.0.1:1", "OIP_DIST_NPROCS": "2",
-         "OIP_DIST_PROCID": "0"}, [],
+        {"OIP_DIST_COORD": f"127.0.0.1:{port}", "OIP_DIST_NPROCS": "2",
+         "OIP_DIST_PROCID": "0", "OIP_DIST_TIMEOUT_S": "3"}, [],
         ["stitch", "--image1", str(a), "--image2", str(a), "-o", str(out),
          "-c", "4"])
     assert res.returncode != 0
-    assert "multi-process launch is not ported" in res.stderr + res.stdout
+    assert "1/2 clients joined" in res.stderr + res.stdout
     assert not out.exists()

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_oracle import use_oracle_remap
+from torch_jax_cli import jax_cli_main
 
-from opticalimageprocessor_tpu import cli as jcli
 from opticalimageprocessor_tpu.formats.rrc_csv import save_rrc_params
 from opticalimageprocessor_tpu.io import tiff as tiff_io
 from opticalimageprocessor_tpu.models import preprocessor as jpre
@@ -213,7 +213,7 @@ def test_cli_usage_errors(scene, case, tmp_path):
     }[case]
     if case in ("no_fast", "mesh"):
         i = argv.index("--device")
-        assert cli.main(argv) == jcli.main(argv[:i] + argv[i + 2:]) == 2
+        assert cli.main(argv) == jax_cli_main(argv[:i] + argv[i + 2:]) == 2
     elif case == "profile":
         assert cli.main(argv) == 2
     else:

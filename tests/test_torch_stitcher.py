@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 from torch_parity_oracle import use_oracle_remap
+from torch_jax_cli import jax_cli_main
 
-from opticalimageprocessor_tpu import cli as jcli
 from opticalimageprocessor_tpu.formats.rrc_csv import save_rrc_params
 from opticalimageprocessor_tpu.io import tiff as tiff_io
 from opticalimageprocessor_tpu.models import stitcher as jst
@@ -184,9 +184,9 @@ def test_stitch_tiff_byte_equal_to_jax(tmp_path, tiff_pair, style):
     flags = {"plain": [], "gdal_band_map": ["-g", "-m", "3,2,1,4"],
              "band_interp": ["--band-interp"]}[style]
     outs = []
-    for mod, name in ((jcli, "jax"), (cli, "port")):
+    for main, name in ((jax_cli_main, "jax"), (cli.main, "port")):
         out = str(tmp_path / f"{name}.TIFF")
-        assert mod.main(["stitch", "--image1", tiff_pair[0], "--image2",
+        assert main(["stitch", "--image1", tiff_pair[0], "--image2",
                          tiff_pair[1], "-o", out, "-c", "16", *flags]) == 0
         outs.append(open(out, "rb").read())
     assert outs[0] == outs[1]
@@ -200,10 +200,10 @@ def test_stitch_raw_byte_equal_to_jax(tmp_path, rng, out):
     for p in (a, b):
         rng.integers(0, 65536, (16, 12288), dtype=np.uint16).tofile(p)
     got = []
-    for mod, d in ((jcli, "jax"), (cli, "port")):
+    for main, d in ((jax_cli_main, "jax"), (cli.main, "port")):
         os.mkdir(tmp_path / d)
         path = str(tmp_path / d / out)
-        assert mod.main(["stitch", "--image1", a, "--image2", b, "-o", path,
+        assert main(["stitch", "--image1", a, "--image2", b, "-o", path,
                          "-c", "200"]) == 0
         got.append(open(path, "rb").read())
     assert got[0] == got[1]
@@ -253,7 +253,7 @@ def test_cli_prestitch_runtime_error_is_rc2(tmp_path):
     np.zeros((4, 12288), np.uint16).tofile(p)
     argv = ["prestitch", "--fast", "--pan1", p, "--pan2", p, "-s", "1",
             "-l", "16"]
-    assert jcli.main(argv) == 2
+    assert jax_cli_main(argv) == 2
     assert cli.main(argv + ["--device", "cpu"]) == 2
 
 
@@ -362,3 +362,21 @@ def test_cli_parity_prestitch_matches_model_api(parity_pair, monkeypatch,
     for want in (api.rrc_file_pan1, api.rrc_file_pan2, api.prestt_file_pan2):
         got = tmp_path / "cli" / os.path.basename(want)
         assert got.read_bytes() == open(want, "rb").read()
+
+
+def test_jax_cli_main_keeps_the_compile_cache_config(tmp_path):
+    """A JAX CLI call through tests/torch_jax_cli.py leaves the worker's
+    JAX compile-cache settings as they were (JAX ``cli.main`` itself turns
+    the persistent cache on for the rest of the process)."""
+    import jax
+    from jax._src import compilation_cache
+
+    before = (jax.config.jax_compilation_cache_dir,
+              jax.config.jax_persistent_cache_min_compile_time_secs)
+    p = str(tmp_path / "a.RAW")
+    np.zeros((4, 12288), np.uint16).tofile(p)
+    assert jax_cli_main(["stitch", "--image1", p, "--image2", p, "-o",
+                         str(tmp_path / "o.RAW"), "-c", "4"]) == 0
+    assert (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs) == before
+    assert compilation_cache._cache is None   # reset: re-read at next use
