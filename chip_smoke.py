@@ -102,8 +102,14 @@ Phases (any failure exits non-zero and prints no result line):
    phase 5's files ((a), (e)); after phase 9's CLI part, ``scene --mesh 2
    --mss2`` on phase 6's 34816-line files ((a)-(d) in both processes).
    Every output equal by SHA-256 to a one-process run of the same command
-   on ``LineMesh([cuda:0] * 2)``, whether it equals phase 5's / 6's
-   printed; each rank's transport (gloo through pinned host copies, as the
+   on ``LineMesh([cuda:0] * 2)`` and to phase 5's / 6's; each output held
+   to the kernels' plain versions at the 2-shard shapes (the one-process
+   run's estimates and coefficients pinned): the RRC files to the numpy
+   oracle, PRESTT.RAW and each ALIGNED.TIFF band to the plain staged
+   remap, the scene's rasters to ``plain_transform`` / the plain band
+   remap over the whole strip, kernel (b) on the first 2-shard block of
+   tiles to its plain version and the 2-shard estimates to the resident
+   route's; each rank's transport (gloo through pinned host copies, as the
    processes share the card), its wall and stage spans and its launches,
    and the two-process wall beside the one-process 2-shard wall.
 
@@ -2864,26 +2870,32 @@ def _one_process_mesh(module, name, key, dev, n=DIST_RANKS):
 
 
 def _dist_vs_one(tag, argv, out_names, tmp: Path, dev, module, name, key,
-                 res):
+                 res, want, spy, held):
     """``argv + --mesh 2`` in two processes, and through ``cli.main`` in
-    this process on ``LineMesh([dev] * 2)``: every output by SHA-256 alike.
-    -> (both runs' launches, the outputs' SHA-256)."""
+    this process on ``LineMesh([dev] * 2)`` with ``spy()`` (which returns
+    its restore) recording what the one-process run computed: every
+    output by SHA-256 alike and equal to ``want`` (phase 5's or 6's, by
+    output name); then ``held(directory)`` holds the two processes'
+    outputs to the plain versions.  -> both runs' launches."""
     one, two = tmp / f"{tag}_one", tmp / f"{tag}_two"
     one.mkdir()
     two.mkdir()
-    restore = _one_process_mesh(module, name, key, dev)
+    restore = [_one_process_mesh(module, name, key, dev), spy()]
     try:
         n_one, secs, _ = run_cli(f"{tag} --mesh {DIST_RANKS} (one process)",
                                  argv(one) + ["--mesh", str(DIST_RANKS)],
                                  "dist")
     finally:
-        restore()
+        for r in restore:
+            r()
     pair = dist_pair(tag, argv(two) + ["--mesh", str(DIST_RANKS)], tmp)
-    shas = {}
     for n in out_names:
-        shas[n] = sha256_file(one / n)
-        check(sha256_file(two / n) == shas[n],
+        sha = sha256_file(one / n)
+        check(sha256_file(two / n) == sha,
               f"{tag}: {n} of two processes != one process, 2 shards")
+        if n in want:
+            check(sha == want[n], f"{tag}: {n} != the single-device route's "
+                  "(phase 5 / 6)")
     check(sorted(os.listdir(one)) == sorted(os.listdir(two)),
           f"{tag}: other files in the two runs")
     check(all(d["transport"] == "through pinned host copies over gloo "
@@ -2897,36 +2909,71 @@ def _dist_vs_one(tag, argv, out_names, tmp: Path, dev, module, name, key,
     ranks = ", ".join(f"{t:.3f}" for t in res[tag]["ranks_s"])
     say(f"[dist] {tag}: two processes {pair['wall_s']:.3f} s (ranks "
         f"{ranks} s in the process) against one process, 2 shards, "
-        f"{secs:.3f} s; outputs equal by SHA-256 {sorted(shas)}")
+        f"{secs:.3f} s; outputs equal by SHA-256 {sorted(out_names)}, "
+        f"{sorted(want)} also to the single-device route's")
     shutil.rmtree(one)
+    held(two)
     shutil.rmtree(two)
-    return [n_one, pair["launches"]], shas
+    return [n_one, pair["launches"]]
 
 
-def phase_dist_files(dev, tmp: Path, want: dict) -> dict:
+def phase_dist_files(dev, tmp: Path, want: dict, lines: int = 16384) -> dict:
     """Phase 10, the file commands, on phase 5's 16384-line files
     (``tmp``): ``prestitch --fast --mesh 2`` and the default ``--fast
     --mesh 2`` in two processes on card 0, every output equal by SHA-256
-    to the one-process ``LineMesh([dev] * 2)`` run; whether they equal
-    phase 5's (``want``) is printed.  -> the launches of these runs."""
+    to the one-process ``LineMesh([dev] * 2)`` run and to phase 5's
+    (``want``); the two processes' RRC.RAW files at 0 DN against the numpy
+    oracle, their PRESTT.RAW and each ALIGNED.TIFF band at 0 DN against
+    the plain staged remap of the whole strip (kernel (e) vs
+    _fast_row_pass_plain) with the one-process run's coefficients.
+    -> the launches of these runs."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.io import tiff
     from opticalimageprocessor_tpu_torch.models import (
         sharded_align,
         sharded_prestitch,
     )
+    from opticalimageprocessor_tpu_torch.models.scene import load_rrc
+    from opticalimageprocessor_tpu_torch.parallel import sharded
 
     pan1, pan2, mss = (str(tmp / f"{n}.RAW")
                        for n in ("CMOS1.PAN", "CMOS2A.PAN", "CMOS1.MSS"))
     csv = {n: str(tmp / f"{n}.csv")
            for n in ("pan1", "pan2", *(f"msb{b}" for b in range(1, 5)))}
+    kb = {n: load_rrc(p, W if n.startswith("pan") else BW)
+          for n, p in csv.items()}
     root = tmp / "dist"
     root.mkdir()
     res = {}
+    calls = []        # the one-process run's remap_band_dynamic arguments
+
+    def spy():
+        calls.clear()
+        return _spy(sharded, "remap_band_dynamic", calls)
 
     def prestitch_argv(out):
         return ["prestitch", "--fast", "--pan1", pan1, "--pan2", pan2,
                 "--rrc1", csv["pan1"], "--rrc2", csv["pan2"], "-s", "1",
                 "-l", "16000", "--stitch-overlap", str(FOLD_COLS),
                 "--out-dir", str(out), "--device", dev.type]
+
+    def held_prestitch(d):
+        for src, par in (("CMOS1.PAN", "pan1"), ("CMOS2A.PAN", "pan2")):
+            got, raw_h = _raw(d / f"{src}.RRC.RAW"), _raw(tmp / f"{src}.RAW")
+            for a in range(0, lines, 4096):
+                check(np.array_equal(got[a:a + 4096], rrc_oracle(
+                    raw_h[a:a + 4096], *kb[par])),
+                    f"two processes: {src}.RRC.RAW != numpy oracle")
+        (_, cx, cy, rb), = calls
+        src = torch.from_numpy(_raw(d / "CMOS2A.PAN.RRC.RAW")).to(dev)
+        plain = _plain_staged(src, cx, cy, rb).cpu().numpy()
+        check(np.array_equal(_raw(d / "CMOS2A.PAN.RRC.PRESTT.RAW"), plain),
+              "two processes: PRESTT.RAW != the plain staged remap")
+        del src, plain
+        torch.cuda.empty_cache()
+        say("[dist] prestitch: the two processes' RRC.RAW == numpy oracle, "
+            f"PRESTT.RAW == plain staged remap at row bound {rb}, 0 DN")
 
     def align_argv(out):
         argv = ["--fast", "--pan", pan1, "--mss", mss, "--do-rrc4pan",
@@ -2937,23 +2984,38 @@ def phase_dist_files(dev, tmp: Path, want: dict) -> dict:
             argv += [f"--rrc-msb{b}", csv[f"msb{b}"]]
         return argv
 
-    l_pst, s_pst = _dist_vs_one(
+    def held_align(d):
+        check(len(calls) == 4, f"align: {len(calls)} band remaps, not 4")
+        img = tiff.read_tiff(str(d / "CMOS1.MSS.ALIGNED.TIFF"))
+        mss_h = _raw(mss).reshape(-1, 4, BW).transpose(1, 0, 2)
+        for b, c in enumerate(calls):
+            rb = c[3] if len(c) > 3 else sharded.ROW_OFF_BOUND
+            src = torch.from_numpy(
+                rrc_oracle(mss_h[b], *kb[f"msb{b + 1}"])).to(dev)
+            plain = _plain_staged(src, np.asarray(c[1]), np.asarray(c[2]),
+                                  rb)[520:].cpu().numpy()
+            check(np.array_equal(img[..., [2, 1, 0, 3].index(b)], plain),
+                  f"two processes: ALIGNED.TIFF band {b + 1} != the plain "
+                  "staged remap")
+        say("[dist] align: the two processes' ALIGNED.TIFF == plain staged "
+            "remap of the whole strip, every band, 0 DN")
+
+    l_pst = _dist_vs_one(
         "prestitch --fast", prestitch_argv,
         ("CMOS1.PAN.RRC.RAW", "CMOS2A.PAN.RRC.RAW",
          "CMOS2A.PAN.RRC.PRESTT.RAW"), root, dev, sharded_prestitch,
-        "run_sharded_prestitch", "n_devices", res)
-    l_al, s_al = _dist_vs_one(
+        "run_sharded_prestitch", "n_devices", res,
+        {"CMOS2A.PAN.RRC.PRESTT.RAW": want["prestt"]}, spy, held_prestitch)
+    l_al = _dist_vs_one(
         "default --fast", align_argv, ("CMOS1.MSS.ALIGNED.TIFF",), root, dev,
-        sharded_align, "run_sharded_align", "n_devices", res)
+        sharded_align, "run_sharded_align", "n_devices", res,
+        {"CMOS1.MSS.ALIGNED.TIFF": want["aligned"]}, spy, held_align)
     for n_l in l_pst:
         check(n_l["rrc"] == 2 * DIST_RANKS and n_l["row_pass"] >= DIST_RANKS,
               f"prestitch --mesh {DIST_RANKS}: launches {n_l}")
     for n_l in l_al:
         check(n_l["rrc"] > 0 and n_l["row_pass"] == 4 * DIST_RANKS,
               f"default --mesh {DIST_RANKS}: launches {n_l}")
-    same = {"prestt": s_pst["CMOS2A.PAN.RRC.PRESTT.RAW"] == want["prestt"],
-            "aligned": s_al["CMOS1.MSS.ALIGNED.TIFF"] == want["aligned"]}
-    say(f"[dist] files: outputs equal to phase 5's (SHA-256) {same}")
     say(f"[dist] files {json.dumps(res)}")
     shutil.rmtree(root)
     return _sum_launches(*l_pst, *l_al)
@@ -2963,23 +3025,143 @@ def phase_dist_scene(dev, tmp: Path, want: dict) -> dict:
     """Phase 10, the scene, on phase 6's 34816-line files (``tmp``):
     ``scene --mesh 2 --mss2`` in two processes on card 0 (kernels (a)-(d)
     in both), every output equal by SHA-256 to the one-process
-    ``LineMesh([dev] * 2)`` run; whether they equal phase 6's (``want``)
-    is printed.  -> the launches of these runs."""
+    ``LineMesh([dev] * 2)`` run and to phase 6's (``want``).  From the
+    one-process run: its estimates within 1e-5 px (fit) and 1e-3 px (stt)
+    of the resident route's, kernel (b) on its first 2-shard block of
+    tiles against its plain version; with its estimates pinned, the two
+    processes' rasters at 0 DN against ``plain_transform`` (kernels (a),
+    (c), (d)) and the plain band remap of RRC(MSS2) at row bound 6 over
+    the whole strip, and the stitched MSS against their seam concat.
+    -> the launches of these runs."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.io import tiff
+    from opticalimageprocessor_tpu_torch.io.raw import RawStrip
+    from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
     from opticalimageprocessor_tpu_torch.models import scene
+    from opticalimageprocessor_tpu_torch.ops import phasecorr, resample, rrc
+    from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
+    from opticalimageprocessor_tpu_torch.parallel.sharded import tile_blocks
+    from opticalimageprocessor_tpu_torch.parallel.sharded_scene import (
+        ShardedMssAlign,
+        ShardedScene,
+    )
 
     files = {n: tmp / f"{n}.RAW" for n in ("PAN1", "PAN2", "MSS", "MSS2")}
     root = tmp / "dist"
     root.mkdir()
     res = {}
-    launches, shas = _dist_vs_one(
+    seen = {}      # the one-process run's estimates and (b)'s first block
+
+    def spy():
+        seen.clear()
+        real = (ShardedScene.estimate, ShardedMssAlign.remap,
+                dp.windowed_crosspower_fused_tiles)
+
+        def estimate(self, *a):
+            out = real[0](self, *a)
+            seen["scene"] = (next(iter(self.pipes.values())), out)
+            return out
+
+        def remap(self, mss_c, cx, cy):
+            seen["mss2"] = (next(iter(self.aligns.values())), cx, cy)
+            return real[1](self, mss_c, cx, cy)
+
+        def wcf(*args):
+            seen.setdefault("block", args)
+            return real[2](*args)
+
+        ShardedScene.estimate, ShardedMssAlign.remap = estimate, remap
+        dp.windowed_crosspower_fused_tiles = wcf
+
+        def restore():
+            ShardedScene.estimate, ShardedMssAlign.remap = real[:2]
+            dp.windowed_crosspower_fused_tiles = real[2]
+        return restore
+
+    def held(d):
+        pipe, (cx, cy, n_valid, raw_dx, raw_dy, n_stt) = seen.pop("scene")
+        pan1, pan2 = (torch.from_numpy(np.array(RawStrip(str(files[n]),
+                                                         W)._mm)).to(dev)
+                      for n in ("PAN1", "PAN2"))
+        mss = scene.load_bands(RawStrip(str(files["MSS"]), W), dev)
+        lines = pan1.shape[0]
+        est = pipe.estimate(pan1, pan2, mss)
+        fit = max(_fit_diff(cx.cpu(), est[0].cpu(), W),
+                  _fit_diff(cy.cpu(), est[1].cpu(), W))
+        stt = max(abs(float(raw_dx) - float(est[3])),
+                  abs(float(raw_dy) - float(est[4])))
+        say(f"[dist] scene: 2-shard estimates vs resident: fit {fit:.3g} px, "
+            f"stt {stt:.3g} px")
+        check(torch.equal(n_valid.cpu(), est[2].cpu())
+              and int(n_stt) == int(est[5]),
+              "2-shard valid counts != resident")
+        check(fit <= 1e-5 and stt <= 1e-3,
+              "2-shard estimates beyond 1e-5 px (fit) / 1e-3 px (stt)")
+        del est
+        # kernel (b) on the first 2-shard block of tiles
+        fpan, fband, (M, N), m_small, win_y, win_x = seen.pop("block")
+        geom = dp.register_geometry(lines, W, pipe.slices, pipe.n_sections)
+        t0, t1 = tile_blocks(geom.n_sections * geom.slices, DIST_RANKS)[0]
+        check(fpan.shape[0] == t1 - t0 < geom.n_sections * geom.slices,
+              f"kernel (b)'s first block holds {fpan.shape[0]} tiles, not "
+              f"{t1 - t0}")
+        keep = fpan.shape[-1]
+        kargs = (fpan, fband,
+                 phasecorr.filter_response(m_small, M // m_small, dev),
+                 phasecorr.filter_response(fband.shape[-1], M // m_small,
+                                           dev)[:keep],
+                 *phasecorr.eval_consts(N, keep, win_x, False, dev))
+        res["block_crosspower_max_abs_err"] = crosspower_vs_plain(
+            f"[dist] (b) on a {fpan.shape[0]}-tile block", kargs,
+            pcc.packed_eval_operands(N, keep, win_x, dev), M, N, win_y,
+            win_x)[0]
+        del fpan, fband, kargs
+        # pinned: the plain versions over the whole strip
+        order = [2, 1, 0, 3]
+        al_p, st_p = plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx,
+                                     raw_dy)
+        del pan1, pan2, mss
+        al1 = al_p.cpu().numpy()
+        check(np.array_equal(tiff.read_tiff(str(d / "MSS.ALIGNED.TIFF")),
+                             al1[..., order]),
+              "two processes: MSS.ALIGNED.TIFF != plain (pinned estimates)")
+        check(np.array_equal(_raw(d / "STITCHED.RAW", st_p.shape[1]),
+                             st_p.cpu().numpy()),
+              "two processes: STITCHED.RAW != plain (pinned estimates)")
+        del al_p, st_p
+        align, cx2, cy2 = seen.pop("mss2")
+        f32 = torch.float32
+        mss2 = scene.load_bands(RawStrip(str(files["MSS2"]), W), dev)
+        al2 = resample._remap_bands_plain(
+            rrc._rrc_plain(mss2, align.mss_k, align.mss_b),
+            torch.as_tensor(cx2, dtype=f32, device=dev),
+            torch.as_tensor(cy2, dtype=f32, device=dev), align.row_bound,
+            resample.col_block_size(BW, align.col_block),
+            align.col_halo).cpu().numpy()
+        del mss2
+        check(np.array_equal(tiff.read_tiff(str(d / "MSS2.ALIGNED.TIFF")),
+                             al2[..., order]),
+              f"two processes: MSS2.ALIGNED.TIFF != plain (row bound "
+              f"{align.row_bound}, pinned estimates)")
+        fh = scene.mss_fold_half(FOLD_COLS)
+        check(np.array_equal(
+            tiff.read_tiff(str(d / "STITCHED_MSS.TIFF")),
+            np.concatenate([al1[:, :BW - fh], al2[:, fh:]], 1)[..., order]),
+            "two processes: STITCHED_MSS.TIFF != the plain rasters' concat")
+        torch.cuda.empty_cache()
+        say(f"[dist] scene: pinned, the two processes' ALIGNED, stitched, "
+            f"ALIGNED2 (row bound {align.row_bound}) and stitched MSS == "
+            "plain over the whole strip, 0 DN")
+
+    launches = _dist_vs_one(
         "scene --mss2", lambda out: scene_argv(files, tmp, out, dev),
-        SCENE_OUTPUTS, root, dev, scene, "run_scene", "mesh", res)
+        SCENE_OUTPUTS, root, dev, scene, "run_scene", "mesh", res,
+        {n: want[n] for n in SCENE_OUTPUTS}, spy, held)
     for n_l in launches:
         check(all(n_l[k] > 0 for k in ("rrc", "crosspower", "remap_band",
                                        "stitch_tail")),
               f"scene --mesh {DIST_RANKS}: launches {n_l}")
-    same = {n: shas[n] == want[n] for n in SCENE_OUTPUTS}
-    say(f"[dist] scene: outputs equal to phase 6's (SHA-256) {same}")
     say(f"[dist] scene {json.dumps(res)}")
     shutil.rmtree(root)
     return _sum_launches(*launches)

@@ -51,7 +51,6 @@ _ENV_COORD = "OIP_DIST_COORD"
 _ENV_NPROCS = "OIP_DIST_NPROCS"
 _ENV_PROCID = "OIP_DIST_PROCID"
 _ENV_LOCAL_IDS = "OIP_DIST_LOCAL_DEVICE_IDS"
-_ENV_TIMEOUT = "OIP_DIST_TIMEOUT_S"
 
 # seconds a process waits for its peers at the join, a barrier or a
 # transfer (JAX's initialization_timeout default): a dead process makes
@@ -93,8 +92,9 @@ def maybe_initialize_distributed() -> bool:
       - ``OIP_DIST_PROCID`` -- this process's id in ``[0, NPROCS)``
       - ``OIP_DIST_LOCAL_DEVICE_IDS`` -- optional comma-separated CUDA
         indices this process claims (default: every visible card)
-      - ``OIP_DIST_TIMEOUT_S`` -- optional seconds to wait for the peers
-        (default 300)
+
+    A peer that has not joined within the timeout (300 s) fails the join,
+    naming the coordinator.
     """
     global _launch
     if not distributed_env_present():
@@ -118,15 +118,19 @@ def maybe_initialize_distributed() -> bool:
         )
     ids = os.environ.get(_ENV_LOCAL_IDS)
     local_ids = [int(x) for x in ids.split(",")] if ids else None
-    timeout = float(os.environ.get(_ENV_TIMEOUT, _DEFAULT_TIMEOUT_S))
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{os.environ[_ENV_COORD]}",
-        world_size=nprocs, rank=procid,
-        timeout=datetime.timedelta(seconds=timeout),
-    )
+    coord, timeout = os.environ[_ENV_COORD], _DEFAULT_TIMEOUT_S
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coord}", world_size=nprocs,
+            rank=procid, timeout=datetime.timedelta(seconds=timeout),
+        )
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"process {procid} of {nprocs} could not join the process group "
+            f"at {coord} within {timeout:g} s: {e}") from e
     _launch = _Launch(local_ids)
     olog("Process %d of %d joined the process group at %s (gloo, %g s "
-         "timeout).", procid, nprocs, os.environ[_ENV_COORD], timeout)
+         "timeout).", procid, nprocs, coord, timeout)
     return True
 
 
@@ -207,6 +211,11 @@ def cuda_transport(mine: list[torch.device], per: int) -> tuple[str, int]:
     if _launch.nccl is None:
         torch.cuda.set_device(mine[0])
         _launch.nccl = dist.new_group(backend="nccl")
+        # NCCL makes a group's communicator at its first call, and a
+        # point-to-point batch that leaves some processes out must not be
+        # that call: make it now, every process alike
+        dist.all_reduce(torch.zeros(1, device=mine[0]), group=_launch.nccl)
+        torch.cuda.synchronize(mine[0])
     _log_transport("nccl", "over NCCL")
     return "nccl", have
 

@@ -681,7 +681,7 @@ def test_cli_mesh_cuda_without_cuda_is_rc2(align_files, prestitch_runs, cmd,
     assert not os.listdir(tmp_path)
 
 
-def _run_cli_subprocess(env_extra, drop, argv):
+def _run_cli_subprocess(env_extra, drop, argv, prelude=""):
     env = dict(os.environ)
     for k in drop:
         env.pop(k, None)
@@ -690,7 +690,7 @@ def _run_cli_subprocess(env_extra, drop, argv):
     return subprocess.run(
         [sys.executable, "-c",
          "import sys\nfrom opticalimageprocessor_tpu_torch.cli import main\n"
-         f"sys.exit(main({argv!r}))"],
+         f"{prelude}sys.exit(main({argv!r}))"],
         env=env, capture_output=True, text=True, timeout=180, cwd=ROOT)
 
 
@@ -720,8 +720,9 @@ def test_cli_fails_loudly_on_a_partial_distributed_env(env, drop, names,
 
 def test_cli_refuses_a_complete_distributed_env(tmp_path):
     """A complete OIP_DIST_* env whose peer never joins is refused within
-    the join timeout (OIP_DIST_TIMEOUT_S): a non-zero rc, no output -- one
-    process never runs alone in place of N, and never hangs."""
+    the join timeout (lowered here from 300 s to 3 s): a non-zero rc
+    naming the coordinator, no output -- one process never runs alone in
+    place of N, and never hangs."""
     import socket
 
     with socket.socket() as s:
@@ -732,9 +733,12 @@ def test_cli_refuses_a_complete_distributed_env(tmp_path):
     out = tmp_path / "O.RAW"
     res = _run_cli_subprocess(
         {"OIP_DIST_COORD": f"127.0.0.1:{port}", "OIP_DIST_NPROCS": "2",
-         "OIP_DIST_PROCID": "0", "OIP_DIST_TIMEOUT_S": "3"}, [],
+         "OIP_DIST_PROCID": "0"}, [],
         ["stitch", "--image1", str(a), "--image2", str(a), "-o", str(out),
-         "-c", "4"])
+         "-c", "4"],
+        prelude="from opticalimageprocessor_tpu_torch.parallel import "
+                "distributed\ndistributed._DEFAULT_TIMEOUT_S = 3.0\n")
     assert res.returncode != 0
-    assert "1/2 clients joined" in res.stderr + res.stdout
+    assert (f"process 0 of 2 could not join the process group at "
+            f"127.0.0.1:{port} within 3 s") in res.stderr + res.stdout
     assert not out.exists()

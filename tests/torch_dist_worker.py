@@ -5,19 +5,20 @@ The parent sets the ``OIP_DIST_*`` launch variables; each process joins the
 process group, runs one command over a line mesh that spans the
 processes, and writes what the parent compares with a one-process run.
 
-Usage:
-    torch_dist_worker.py cli <pixels_per_line> <argv...>
+Usage (``<timeout_s>``: the process group's timeout, in place of the
+port's 300 s, so that a test whose peer fails does not wait that long):
+    torch_dist_worker.py <timeout_s> cli <pixels_per_line> <argv...>
         ``opticalimageprocessor_tpu_torch.cli.main(argv)`` with the mesh
         and scene routes narrowed to ``pixels_per_line`` (the CLI runs at
         the camera width); exits with its return code
-    torch_dist_worker.py align_step <dir>
+    torch_dist_worker.py <timeout_s> align_step <dir>
         the sharded align step on ``<dir>/inputs.npz`` over ``--mesh 8``,
         then the RAW drain of the ingested PAN and the LZW drain of
         ``<dir>/ramp.npy``
-    torch_dist_worker.py align_e2e <dir>
+    torch_dist_worker.py <timeout_s> align_e2e <dir>
         ``run_sharded_align`` with ``write_rrcpan`` into ``<dir>/out_multi``,
         then with ``write_tiff=False``
-    torch_dist_worker.py peer_exit <dir>
+    torch_dist_worker.py <timeout_s> peer_exit <dir>
         every process joins; the last one exits, the others then wait at a
         barrier
 """
@@ -104,14 +105,17 @@ def peer_exit(d: str) -> None:
 
 
 def main() -> int:
-    mode = sys.argv[1]
+    from opticalimageprocessor_tpu_torch.parallel import distributed
+
+    distributed._DEFAULT_TIMEOUT_S = float(sys.argv[1])
+    mode, args = sys.argv[2], sys.argv[3:]
     if mode == "cli":
-        _narrow(int(sys.argv[2]))
+        _narrow(int(args[0]))
         from opticalimageprocessor_tpu_torch import cli
 
-        return cli.main(sys.argv[3:])
+        return cli.main(args[1:])
     {"align_step": align_step, "align_e2e": align_e2e,
-     "peer_exit": peer_exit}[mode](sys.argv[2])
+     "peer_exit": peer_exit}[mode](args[0])
     return 0
 
 
