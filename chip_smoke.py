@@ -14,7 +14,7 @@ intervals, idle share; no other phase runs):
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, torch/CUDA versions, and the build of
-   the five hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
+   the six hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its stated tolerance, both timed
    with CUDA events, beside the kernel's bound (the bytes it must move at
@@ -54,11 +54,17 @@ Phases (any failure exits non-zero and prints no result line):
    peak device memory (the streamed transform below a quarter of the
    resident one), and one streamed transform under torch.profiler (copy
    and kernel ms, their union);
-7. the parity route: ``remap_section_u16`` (plain PyTorch, no kernel of
-   its own) at 0 DN against a numpy copy of the ``cv::remap`` oracle in
-   both coordinate modes on a 2048 x 3072 band section and a 1024 x 12288
-   constant-shift section, its ms a 30000 x 12288 section and a 20000 x
-   3072 band section beside its bound and its peak device memory; then
+7. the parity route: kernel (f) (``remap_section_u16`` on the card) at 0
+   DN, in both coordinate modes, against a numpy copy of the ``cv::remap``
+   oracle on a 2048 x 3072 band section and a 1024 x 12288 constant-shift
+   section, and against its plain version at 30000 x 12288 (shift), 20000
+   x 3072 (band), on a 32800 x 3072 section at (0.4, +1.3) whose quantized
+   rows past 32767 saturate (0 there, the oracle on the rows below) and on
+   a line mesh's call (a 5000-row window, ``first`` 7, ``count`` 4986,
+   ``origin`` 20000); its ms a 30000 x 12288 section and a 20000 x 3072
+   band section beside the plain version's, its bound and
+   ``F.grid_sample``'s (bicubic, a yardstick the port never calls; its max
+   DN from the kernel printed), and its peak device memory; then
    ``prestitch`` and the default action through ``cli.main`` without
    ``--fast`` in each ``--coord-mode`` and with ``--fast``, on 40960-line
    RAW files (two 30000-row prestitch sections with the rolling-buffer
@@ -66,7 +72,8 @@ Phases (any failure exits non-zero and prints no result line):
    count, each parity output at 0 DN against the oracle on row windows at
    every section edge and the bottom cut, > 1 DN from the ``--fast`` one
    on < 1% of each section's first 1024 rows (continuous mode), the modes
-   different, kernel (a) launched;
+   different, kernels (a) and (f) launched and the plain parity remap
+   never run on a CUDA tensor;
 8. docs/sample-task.sh from the raw downlink: phase 5's 16384-line scene
    framed into two downlinks (CMOS1: PAN1 and the MSS; CMOS2: PAN2), 16
    image frames each with random AUX blocks, leading junk, empty frames,
@@ -88,7 +95,9 @@ Phases (any failure exits non-zero and prints no result line):
    after phase 5, ``run_sharded_align`` (both ``--coord-mode``s) and
    ``run_sharded_prestitch`` on its files, 4 shards and 1 byte for byte
    alike, 0 DN against the plain staged remap (continuous, the prestitch)
-   and against the cv::remap oracle at every shard seam (quantized), and
+   and against the cv::remap oracle at every shard seam (quantized:
+   kernel (f), 4 launches a shard, the plain parity remap never on a CUDA
+   tensor), and
    ``prestitch --mesh 1`` / the default ``--mesh 1`` through ``cli.main``;
    after phase 6, ``scene --mesh 1 --mss2`` and ``scene --stream --mesh 1
    --mss2`` at phase 6's SHA-256, ``scene --mesh 2`` refused on one card
@@ -119,9 +128,10 @@ against the CPU's plain versions.
 The last two lines of standard output are the kernels' JSON record
 (launches over phases 3 and 5-10, phase 10's both ranks' included, error,
 kernel, plain and bound ms at
-phase 2's shapes, plus the scene shapes' ms and bound for (b) and (d), the
-streamed section's for (d), the file commands' and MSS2's shapes' ms and
-bound for (c), and each of (e)'s shapes' ms and bound) and
+phase 2's shapes -- phase 7's for (f) --, plus the scene shapes' ms and
+bound for (b) and (d), the streamed section's for (d), the file commands'
+and MSS2's shapes' ms and bound for (c), each of (e)'s shapes' ms and
+bound, and (f)'s band section ms and bound and peak memory) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1507,63 +1517,184 @@ def oracle_rows(rows, origin, l0, l1, mapx_cols, g, quantized):
 # of real fits) and the constant-shift gate's translation
 PARITY_POLY = ((4.3, -2.1e-5), (3.6, 6.5e-5, -3.0e-9))
 PARITY_SHIFT = (-3.3, 3.4)
+# quantized coordinates saturate at int16 on map rows past 32767
+SATURATED_SHIFT = (0.4, 1.3)
+SATURATED_ROWS = 32800
+# a line-mesh shard's call: a window of the strip, its output rows and the
+# map row of its row 0 (parallel/sharded.plan_remap_sharded)
+MESH_CALL = dict(rows=5000, first=7, count=4986, origin=20000)
+MODES = ((False, "continuous"), (True, "quantized"))
 
 
-def parity_function_gate(dev, rng, res):
-    """``remap_section_u16`` on the card at 0 DN against the numpy oracle
-    in both coordinate modes, on a 2048 x 3072 band section and a 1024 x
-    12288 constant-shift section; then its ms a section (CUDA events) at
-    30000 x 12288 and at a 20000 x 3072 band section beside its bound
-    (uint16 in and out at the memory rate), and the peak device memory of
-    one 30000 x 12288 section."""
+def parity_plan(kind, width, quantized, shift=PARITY_SHIFT):
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    if kind == "band":
+        return resample.plan_for_band_alignment(*PARITY_POLY, width,
+                                                quantized)
+    return resample.plan_for_constant_shift(*shift, width, quantized)
+
+
+def remap_section_bound(rows, count, width) -> dict:
+    """Kernel (f): the (rows, W) uint16 section read, the (count, W) uint16
+    output written and the plan's 28 bytes a column (tap0, 4 weights, g),
+    against its float32 operations: 75 a pixel (the vertical coordinate 2-3,
+    the 4 row weights 21, the 16 tap weights and 16 products, 15 sums, the
+    rounding 3, one conversion of the input)."""
+    return bound(2 * rows * width + 2 * count * width + 28 * width,
+                 operations=(75 * count * width, F32_FLOPS))
+
+
+def grid_sample_remap(torch, sec_f, dx, dy):
+    """``F.grid_sample`` bicubic (A = -0.75), zeros outside, align_corners,
+    of the float32 section at mapx = x + dx, mapy = y + dy: the PyTorch
+    call nearest to kernel (f)'s function, a yardstick the port never
+    calls.  -> a function that computes it (float32, not rounded)."""
+    import torch.nn.functional as F
+
+    rows, width = sec_f.shape
+    dev = sec_f.device
+    gx = (torch.arange(width, dtype=torch.float64, device=dev) + dx) \
+        * (2.0 / (width - 1)) - 1.0
+    gy = (torch.arange(rows, dtype=torch.float64, device=dev) + dy) \
+        * (2.0 / (rows - 1)) - 1.0
+    grid = torch.empty((1, rows, width, 2), dtype=torch.float32, device=dev)
+    grid[..., 0] = gx.to(torch.float32)[None, :]
+    grid[..., 1] = gy.to(torch.float32)[:, None]
+    inp = sec_f[None, None]
+    return lambda: F.grid_sample(inp, grid, mode="bicubic",
+                                 padding_mode="zeros", align_corners=True)
+
+
+def parity_function_gate(dev, rng, res, records):
+    """Kernel (f) (``remap_section_u16`` on CUDA tensors) at 0 DN, in both
+    coordinate modes: against the numpy oracle on a 2048 x 3072 band
+    section and a 1024 x 12288 constant-shift section; against its plain
+    version at 30000 x 12288 (shift) and 20000 x 3072 (band), on a quantized
+    32800 x 3072 section at (0.4, +1.3) whose rows past 32767 saturate (0
+    there, as the JAX package gives; the oracle below them) and on a line
+    mesh's call (a 5000-row window, ``first`` 7, ``count`` 4986, ``origin``
+    20000).  Then its ms a 30000 x 12288 and a 20000 x 3072 section (CUDA
+    events) beside the plain version's, its bound and ``F.grid_sample``'s
+    (its max DN against the kernel printed, not gated), and the peak device
+    memory of one 30000 x 12288 section."""
     import torch
 
     from opticalimageprocessor_tpu_torch.ops import resample
 
-    def plan(kind, width, quantized):
-        if kind == "band":
-            return resample.plan_for_band_alignment(*PARITY_POLY, width,
-                                                    quantized)
-        return resample.plan_for_constant_shift(*PARITY_SHIFT, width,
-                                                quantized)
+    def plain(src, p, first=0, count=None, origin=0):
+        count = src.shape[0] - first if count is None else count
+        return resample._remap_section_plain(src, p, first, count, origin)
+
+    worst = 0
+
+    def held(tag, got, want):
+        nonlocal worst
+        dmax = dn_diff(got, want)[0]
+        say(f"[parity] kernel (f) {tag}: max {dmax} DN")
+        check(dmax == 0, f"kernel (f) {tag}: {dmax} DN")
+        worst = max(worst, dmax)
 
     for kind, rows, width in (("band", 2048, BW), ("shift", 1024, W)):
         src = rng.integers(0, 65536, (rows, width), dtype=np.uint16)
         cols = (poly_cols(*PARITY_POLY, width) if kind == "band"
                 else shift_cols(*PARITY_SHIFT, width))
         dsrc = torch.from_numpy(src).to(dev)
-        for quantized in (False, True):
-            mode = "quantized" if quantized else "continuous"
+        for quantized, mode in MODES:
             got = resample.remap_section_u16(
-                dsrc, plan(kind, width, quantized)).cpu().numpy()
+                dsrc, parity_plan(kind, width, quantized)).cpu()
             want = remap_oracle(src, *maps_for_rows(*cols, 0, rows),
                                 quantized)
-            dmax = int(np.abs(got.astype(np.int32)
-                              - want.astype(np.int32)).max())
-            say(f"[parity] remap_section_u16 {kind} ({rows}, {width}) "
-                f"{mode}: max {dmax} DN against the oracle")
-            check(dmax == 0, f"remap_section_u16 {kind} {mode} vs oracle: "
-                             f"{dmax} DN")
-            res[f"oracle_{kind}_{mode}_max_dn"] = dmax
+            held(f"{kind} ({rows}, {width}) {mode} vs the oracle", got,
+                 torch.from_numpy(want))
+            res[f"oracle_{kind}_{mode}_max_dn"] = 0
         del dsrc
+
+    # the saturated rows: plain and kernel, and the oracle below them
+    rows = SATURATED_ROWS
+    src = rng.integers(0, 65536, (rows, BW), dtype=np.uint16)
+    dsrc = torch.from_numpy(src).to(dev)
+    for quantized, mode in MODES:
+        p = parity_plan("shift", BW, quantized, SATURATED_SHIFT)
+        got = resample.remap_section_u16(dsrc, p)
+        held(f"({rows}, {BW}) at {SATURATED_SHIFT} {mode} vs plain", got,
+             plain(dsrc, p))
+        # quantized: the 64 rows below row 32767, the last that a window's
+        # oracle (local map rows, which never saturate) reproduces;
+        # continuous (no saturation): the section's last 64 rows
+        l0 = 32767 - 64 if quantized else rows - 64
+        want = oracle_rows(src[l0 - 16:l0 + 80], l0 - 16, l0, l0 + 64,
+                           *shift_cols(*SATURATED_SHIFT, BW), quantized)
+        held(f"({rows}, {BW}) {mode} rows [{l0}, {l0 + 64}) vs the oracle",
+             got[l0:l0 + 64].cpu(), torch.from_numpy(want))
+        if quantized:
+            n_sat = int(got[32768:].to(torch.int32).count_nonzero())
+            say(f"[parity] kernel (f) quantized rows past 32767: "
+                f"{n_sat} non-zero pixels")
+            check(n_sat == 0, "kernel (f): saturated rows not 0")
+        del got
+    del dsrc
+    # the line mesh's call, on the band plan
+    m = MESH_CALL
+    dsrc = torch.from_numpy(
+        rng.integers(0, 65536, (m["rows"], BW), dtype=np.uint16)).to(dev)
+    for quantized, mode in MODES:
+        p = parity_plan("band", BW, quantized)
+        args = (m["first"], m["count"], m["origin"])
+        got = resample.remap_section_u16(dsrc, p, *args)
+        check(got.shape == (m["count"], BW), f"mesh call: {got.shape}")
+        held(f"mesh call {m} {mode} vs plain", got, plain(dsrc, p, *args))
+    del dsrc, got
+    torch.cuda.empty_cache()
 
     for tag, rows, width, kind in (("section", 30000, W, "shift"),
                                    ("band_section", 20000, BW, "band")):
         sec = torch.from_numpy(
             rng.integers(0, 65536, (rows, width), dtype=np.uint16)).to(dev)
-        p = plan(kind, width, False)
+        for quantized, mode in MODES:
+            p = parity_plan(kind, width, quantized)
+            got = resample.remap_section_u16(sec, p)
+            held(f"{tag} ({rows}, {width}) {mode} vs plain", got,
+                 plain(sec, p))
+            del got
+        p = parity_plan(kind, width, False)
         if tag == "section":
             # the section itself (0.74 GB) is on the card before the call
             _, res["section_peak_gb"] = _peak_gb(
                 lambda: resample.remap_section_u16(sec, p))
+            _, res["section_plain_peak_gb"] = _peak_gb(lambda: plain(sec, p))
         res[f"{tag}_ms"] = time_ms(lambda: resample.remap_section_u16(sec, p),
-                                   2)
-        res[f"{tag}_bound_ms"] = bound(4 * sec.numel())["bound_ms"]
-        res[f"{tag}_shape"] = f"({rows}, {width}) u16, {kind}"
+                                   10)
+        res[f"{tag}_plain_ms"] = time_ms(lambda: plain(sec, p), 2)
+        res[f"{tag}_bound"] = remap_section_bound(rows, rows, width)
+        res[f"{tag}_shape"] = f"({rows}, {width}) u16, {kind}, continuous"
+        if tag == "section":
+            sec_f = sec.to(torch.float32)
+            lib = grid_sample_remap(torch, sec_f, *PARITY_SHIFT)
+            ref = resample.remap_section_u16(sec, p).to(torch.int32)
+            d = (torch.clamp(torch.round(lib()[0, 0]), 0, 65535).to(
+                torch.int32) - ref).abs()
+            res["grid_sample_max_dn"] = int(d.max())
+            res["grid_sample_share_over_1dn"] = float(
+                (d > 1).double().mean())
+            del d, ref
+            res["grid_sample_ms"] = time_ms(lib, 5)
+            del lib, sec_f
         del sec
         torch.cuda.empty_cache()
-    say("[parity] remap_section_u16: " + json.dumps(
+    say("[parity] kernel (f): " + json.dumps(
         {k: v for k, v in res.items() if not k.startswith("oracle")}))
+    records["remap_section"] = dict(
+        max_abs_err=float(worst), ms=res["section_ms"],
+        plain_ms=res["section_plain_ms"], library_ms=res["grid_sample_ms"],
+        library="torch.nn.functional.grid_sample(mode='bicubic', "
+                "padding_mode='zeros', align_corners=True) on the float32 "
+                f"section: max {res['grid_sample_max_dn']} DN from the "
+                "kernel (float32 normalised coordinates)",
+        shape=res["section_shape"], **res["section_bound"],
+        band_section_ms=res["band_section_ms"],
+        band_section_bound_ms=res["band_section_bound"]["bound_ms"],
+        section_peak_gb=res["section_peak_gb"])
 
 
 def sectionary_remap(lines, dy, section_rows=30000):
@@ -1697,20 +1828,30 @@ def row_mask(rows, spans, cut=()):
     return keep
 
 
-def _spy(module, name, calls):
-    """Record the positional arguments of every ``module.name`` call;
-    returns a function that restores the original."""
+def _spy(module, name, calls, record=None):
+    """Record the positional arguments of every ``module.name`` call (or
+    what ``record`` makes of them); returns a function that restores the
+    original."""
     real = getattr(module, name)
 
     def spy(*args, **kw):
-        calls.append(args)
+        calls.append(args if record is None else record(args))
         return real(*args, **kw)
 
     setattr(module, name, spy)
     return lambda: setattr(module, name, real)
 
 
-def phase_parity(dev, power, tmp: Path, lines: int = 40960):
+def _spy_plain_parity(devices):
+    """Record the device type of every section the plain parity remap
+    (``resample._remap_rows``) is given; returns the restore function."""
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    return _spy(resample, "_remap_rows", devices,
+                lambda args: args[0].device.type)
+
+
+def phase_parity(dev, power, tmp: Path, records, lines: int = 40960):
     """The parity route on the card: the function gate, then through
     ``cli.main`` on a 40960-line scene of RAW files (bench.py's synthesis,
     PAN2 3 rows below PAN1): ``prestitch`` in each ``--coord-mode`` and
@@ -1728,7 +1869,7 @@ def phase_parity(dev, power, tmp: Path, lines: int = 40960):
 
     rng = np.random.default_rng(SEED + 5)
     res = {"lines": lines, "card": power}
-    parity_function_gate(dev, rng, res)
+    parity_function_gate(dev, rng, res, records)
 
     pan1, pan2, mss = synth_scene(torch, rng, lines, dev, dy=3)
     files = {n: tmp / f"{n}.RAW" for n in ("CMOS1.PAN", "CMOS2.PAN",
@@ -1745,24 +1886,29 @@ def phase_parity(dev, power, tmp: Path, lines: int = 40960):
         csv[name] = str(tmp / f"{name}.csv")
         _write_csv(csv[name], *kb[name])
 
-    launches, plans = {}, []
+    launches, plans, plain_devices = {}, [], []
     modes = (("continuous", []), ("fast", ["--fast"]),
              ("quantized", ["--coord-mode", "quantized"]))
 
     def run(tag, argv):
         plans.clear()
+        plain_devices.clear()
         launches[tag], res[f"{tag}_wall_s"], text = run_cli(tag, argv,
                                                             "parity")
         n = launches[tag]
         fast = "--fast" in argv
         check(n["rrc"] > 0 and n["crosspower"] == 0 and n["stitch_tail"] == 0
-              and n["row_pass"] == 0 and (n["remap_band"] > 0) == fast,
+              and n["row_pass"] == 0 and (n["remap_band"] > 0) == fast
+              and (n["remap_section"] > 0) != fast,
               f"{tag}: launches {n}")
         check(bool(plans) != fast, f"{tag}: {len(plans)} parity plans")
+        check("cuda" not in plain_devices,
+              f"{tag}: the plain parity remap ran on {plain_devices}")
         return text
 
     restore = [_spy(resample, "plan_for_constant_shift", plans),
-               _spy(resample, "plan_for_band_alignment", plans)]
+               _spy(resample, "plan_for_band_alignment", plans),
+               _spy_plain_parity(plain_devices)]
     try:
         # 1. prestitch: continuous, --fast, quantized on the same pair
         base = ["prestitch", "--pan1", str(files["CMOS1.PAN"]), "--pan2",
@@ -2509,9 +2655,10 @@ def phase_mesh_files(dev, tmp: Path, lines: int = 16384):
     root.mkdir()
     res = {"lines": lines, "shards": MESH_SHARDS}
     launches, dirs, fits = [], {}, {}
-    calls = []
+    calls, plain_devices = [], []
     restore = [_spy(sharded, "remap_band_dynamic", calls),
-               _spy(sharded, "plan_remap_sharded", calls)]
+               _spy(sharded, "plan_remap_sharded", calls),
+               _spy_plain_parity(plain_devices)]
     try:
         for mode in ("continuous", "quantized"):
             for n in (MESH_SHARDS, 1):
@@ -2533,13 +2680,19 @@ def phase_mesh_files(dev, tmp: Path, lines: int = 16384):
                                   c[3] if len(c) > 3 else 6) for c in calls]
                     check(n_l["row_pass"] == 4 * n and n_l["rrc"] > 0
                           and n_l["remap_band"] == 0
-                          and n_l["crosspower"] == 0,
+                          and n_l["crosspower"] == 0
+                          and n_l["remap_section"] == 0,
                           f"{tag}: launches {n_l}")
                 else:
                     (_, cxq, cyq, _), = calls
                     fits[tag] = (np.asarray(cxq), np.asarray(cyq))
-                    check(n_l["row_pass"] == 0 and n_l["rrc"] > 0,
+                    # kernel (f): 4 bands a shard; never the plain version
+                    check(n_l["row_pass"] == 0 and n_l["rrc"] > 0
+                          and n_l["remap_section"] == 4 * n,
                           f"{tag}: launches {n_l}")
+                    check("cuda" not in plain_devices,
+                          f"{tag}: the plain parity remap ran on "
+                          f"{plain_devices}")
             name = "CMOS1.MSS.ALIGNED.TIFF"
             a, b = (dirs[f"align_{mode}_{n}"] / name
                     for n in (MESH_SHARDS, 1))
@@ -3350,7 +3503,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         parity_dir = Path(tmp, "parity")
         parity_dir.mkdir()
-        parity_launches = phase_parity(dev, power, parity_dir)
+        parity_launches = phase_parity(dev, power, parity_dir, records)
         shutil.rmtree(parity_dir)
         torch.cuda.empty_cache()
         downlink_dir = Path(tmp, "downlink")
@@ -3380,6 +3533,10 @@ def main() -> int:
                         "opticalimageprocessor_tpu/ops/resample.py:1149"),
         "row_pass": ("opticalimageprocessor_tpu_torch/csrc/row_pass.cu",
                      "opticalimageprocessor_tpu/ops/resample.py:652"),
+        # not a TPU kernel: the XLA program the JAX package runs a section
+        "remap_section": (
+            "opticalimageprocessor_tpu_torch/csrc/remap_section.cu",
+            "opticalimageprocessor_tpu/ops/resample.py:415"),
     }
     kernels = []
     for name, (source, repl) in replaces.items():
@@ -3395,7 +3552,8 @@ def main() -> int:
                                  "prestitch_bound_ms", "align_ms",
                                  "align_bound_ms", "mss2_ms", "mss2_bound_ms",
                                  "section_ms", "section_bound_ms", "library",
-                                 "shapes")
+                                 "shapes", "band_section_ms",
+                                 "band_section_bound_ms", "section_peak_gb")
                if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -40,6 +40,7 @@ LAUNCHES: dict[str, int] = {
     "remap_band": 0,
     "stitch_tail": 0,
     "row_pass": 0,
+    "remap_section": 0,
 }
 
 _P = ctypes.c_void_p
@@ -58,6 +59,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
     ],
     "oip_row_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "oip_remap_section": [
+        _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _I, _I, _P,
+    ],
 }
 
 _lock = threading.Lock()

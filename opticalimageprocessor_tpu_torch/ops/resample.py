@@ -18,9 +18,9 @@ Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``:
   :func:`remap_constant_shift_u16`) -- the parity route's ``cv::remap``
   INTER_CUBIC of one section with the reference's section-local maps, in
   either coordinate convention, bit for bit the numpy oracle
-  ``cv_exact.remap_cubic_u16_exact`` of the JAX package.  Plain PyTorch
-  on every device: the JAX package computes it in XLA, not in a TPU
-  kernel.
+  ``cv_exact.remap_cubic_u16_exact`` of the JAX package (apart from its
+  rows past int16's saturation, which give 0 as in the JAX package):
+  kernel (f) on CUDA, where the JAX package runs XLA, not a TPU kernel.
 
 The fast path's column cubic keeps the semantics of the JAX package's
 banded column matrix (``_col_interp_matrix``): taps outside the image, or
@@ -704,7 +704,7 @@ def plan_for_constant_shift(dx: float, dy: float, width: int,
                             quantized_coords)
 
 
-PARITY_CHUNK_ROWS = 2048   # output rows a step of remap_section_u16
+PARITY_CHUNK_ROWS = 2048   # output rows a step of the plain version
 
 
 def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
@@ -717,21 +717,21 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
     multiply-add is fused)."""
     rows, width = src.shape
     f32 = torch.float32
-    # source rows [b0, b1) with zeros beyond the section, plus one zero
-    # guard row at each end: a tap outside the plan's reach lands there
+    # source rows [b0, b1), zeros beyond the section: every tap of a pixel
+    # whose row offset lies in the plan's range falls inside
     b0, b1 = y0 - plan.halo_top, y1 + plan.halo_bottom
-    buf = torch.zeros((b1 - b0 + 2, width), dtype=f32, device=src.device)
+    buf = torch.zeros((b1 - b0, width), dtype=f32, device=src.device)
     lo, hi = max(b0, 0), min(b1, rows)
     if hi > lo:
-        buf[lo - b0 + 1:hi - b0 + 1].copy_(src[lo:hi])
+        buf[lo - b0:hi - b0].copy_(src[lo:hi])
     # the 4 column taps of every pixel, 0 outside the width
     colg = buf.index_select(1, col_idx).view(-1, width, 4)
     colg.masked_fill_(~col_ok, 0.0)
     colg = colg.view(-1, 4)
 
-    y = torch.arange(y0 + origin, y1 + origin, dtype=torch.float64,
+    y = torch.arange(y0 + origin, y1 + origin, dtype=torch.int64,
                      device=src.device)
-    v = (y[:, None] + g[None, :]).to(f32)       # float32(y + g), as the map
+    v = (y.to(torch.float64)[:, None] + g[None, :]).to(f32)   # the map
     if plan.quantized:
         s = torch.round(v * 32.0).to(torch.int64)
         iy = torch.clamp(s >> 5, -32768, 32767)
@@ -743,8 +743,13 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
     del v
     wy = _cubic_weights_f32(fy)
     del fy
-    # buffer row of tap a = 0: source row iy - 1 sits at iy - 1 - b0 + 1
-    base = iy - (b0 + origin)
+    # the JAX package's rule, per pixel: a row offset outside the plan's
+    # range (quantized rows past int16's saturation) gives 0
+    r_off = iy - y[:, None]
+    inside = (r_off >= plan.row_offsets[0]) & (r_off <= plan.row_offsets[-1])
+    del r_off
+    # buffer row of tap a = 0: source row iy - 1 sits at iy - 1 - b0
+    base = iy - (b0 + origin + 1)
     del iy
     x = torch.arange(width, device=src.device)
     acc = None
@@ -756,34 +761,14 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
         p = taps * (wy[a][..., None] * wx)
         t = ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
         acc = t if acc is None else acc + t
-    return acc
+    return acc.masked_fill_(~inside, 0.0)
 
 
-def remap_section_u16(src: torch.Tensor, plan: RemapPlan, first: int = 0,
-                      count: int | None = None,
-                      origin: int = 0) -> torch.Tensor:
-    """``cv::remap(section, mapx, mapy, INTER_CUBIC, BORDER_CONSTANT, 0)``
-    of a (rows, W) uint16 section with the section-local maps of ``plan``:
-    rows and columns outside the section read 0, a pixel whose whole 4x4
-    support lies outside is 0, the sum is rounded half to even and clamped
-    to [0, 65535].  Returns (rows, W) uint16 on ``src``'s device.
-
-    ``first`` / ``count`` select output rows ``[first, first + count)`` of
-    the section, and ``origin`` is the map row of the section's row 0: the
-    line mesh remaps a shard with its halo rows under whole-image maps
-    (``mapy = float32(y + G)``, ``y`` the strip's row).
-
-    Works through the section :data:`PARITY_CHUNK_ROWS` output rows at a
-    time (read at call time), each with its halo rows and its absolute
-    ``y``: the result does not depend on the chunking.  Taps beyond the
-    plan's row range (only where quantized coordinates saturate at int16,
-    in sections over 32767 rows) read 0."""
-    rows, width = src.shape
-    if width != plan.width:
-        raise ValueError(
-            f"remap_section_u16: section width {width} != plan width "
-            f"{plan.width}")
-    count = rows - first if count is None else count
+def _remap_section_plain(src: torch.Tensor, plan: RemapPlan, first: int,
+                         count: int, origin: int) -> torch.Tensor:
+    """The plain version of kernel (f): :data:`PARITY_CHUNK_ROWS` output
+    rows at a time (read at call time), each chunk with its halo rows."""
+    width = src.shape[1]
     dev = src.device
     wx = torch.from_numpy(np.ascontiguousarray(plan.wx.T)).to(dev)
     cols = torch.from_numpy(plan.col_tap0.astype(np.int64))[:, None] + \
@@ -798,6 +783,76 @@ def remap_section_u16(src: torch.Tensor, plan: RemapPlan, first: int = 0,
         out[y0 - first:y1 - first] = _round_u16(
             _remap_rows(src, plan, wx, col_idx, col_ok, g, y0, y1, origin))
     return out
+
+
+def _check_section_args(src: torch.Tensor, plan: RemapPlan, first: int,
+                        count: int) -> None:
+    if src.dim() != 2 or src.dtype != torch.uint16:
+        raise ValueError(
+            "remap_section_u16: the section must be (rows, W) uint16; got "
+            f"{tuple(src.shape)} {src.dtype}")
+    rows, width = src.shape
+    if width != plan.width or plan.col_tap0.shape != (width,) \
+            or plan.wx.shape != (4, width) or plan.g.shape != (width,):
+        raise ValueError(
+            f"remap_section_u16: section width {width} does not match the "
+            f"plan (width {plan.width})")
+    if first < 0 or count < 0 or first + count > rows:
+        raise ValueError(
+            f"remap_section_u16: output rows [{first}, {first + count}) "
+            f"outside the section's {rows}")
+
+
+def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
+                        count: int, origin: int) -> torch.Tensor:
+    """Kernel (f), ``csrc/remap_section.cu``: one launch a call."""
+    _check_section_args(src, plan, first, count)
+    _build.require_cuda("remap_section_u16", src)
+    src = src.contiguous()
+    rows, width = src.shape
+    dev = src.device
+    tap0 = torch.from_numpy(plan.col_tap0.astype(np.int32)).to(dev)
+    wx = torch.from_numpy(np.ascontiguousarray(plan.wx, np.float32)).to(dev)
+    g = torch.from_numpy(np.ascontiguousarray(plan.g, np.float64)).to(dev)
+    out = torch.empty((count, width), dtype=torch.uint16, device=dev)
+    if out.numel():
+        _build.launch(
+            "remap_section", "oip_remap_section", src.data_ptr(),
+            tap0.data_ptr(), wx.data_ptr(), g.data_ptr(), out.data_ptr(),
+            rows, width, first, count, origin, int(plan.quantized),
+            plan.row_offsets[0], plan.row_offsets[-1], _build.stream_of(src),
+            device=dev,
+        )
+    return out
+
+
+def remap_section_u16(src: torch.Tensor, plan: RemapPlan, first: int = 0,
+                      count: int | None = None,
+                      origin: int = 0) -> torch.Tensor:
+    """``cv::remap(section, mapx, mapy, INTER_CUBIC, BORDER_CONSTANT, 0)``
+    of a (rows, W) uint16 section with the section-local maps of ``plan``:
+    rows and columns outside the section read 0, a pixel whose whole 4x4
+    support lies outside is 0, the sum is rounded half to even and clamped
+    to [0, 65535].  Returns (count, W) uint16 on ``src``'s device: kernel
+    (f) on CUDA tensors, the plain version on CPU ones.
+
+    ``first`` / ``count`` select output rows ``[first, first + count)`` of
+    the section (default: from ``first`` to the end), and ``origin`` is the
+    map row of the section's row 0: the line mesh remaps a shard with its
+    halo rows under whole-image maps (``mapy = float32(y + G)``, ``y`` the
+    strip's row).
+
+    A pixel whose row offset ``iy - (y + origin)`` lies outside
+    ``plan.row_offsets`` is 0, as in the JAX package's
+    ``_remap_section_math``: that happens only where quantized coordinates
+    saturate at int16 (map rows past 32767), where ``cv::remap`` would
+    repeat the saturated row.  The result does not depend on the plain
+    version's chunking."""
+    count = src.shape[0] - first if count is None else count
+    if src.device.type != "cpu":
+        return _remap_section_cuda(src, plan, first, count, origin)
+    _check_section_args(src, plan, first, count)
+    return _remap_section_plain(src, plan, first, count, origin)
 
 
 def remap_polynomial_u16(src: torch.Tensor, coeff_x, coeff_y,

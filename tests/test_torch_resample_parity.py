@@ -14,6 +14,7 @@ import torch
 
 from opticalimageprocessor_tpu.ops import cv_exact
 from opticalimageprocessor_tpu.ops import resample as jres
+from opticalimageprocessor_tpu_torch import _build
 from opticalimageprocessor_tpu_torch.ops import resample
 
 torch.set_num_threads(2)
@@ -168,3 +169,104 @@ def test_golden_band_equals_oracle(golden_band):
     jax_out = np.asarray(jres.remap_polynomial_u16(jnp.asarray(band), cx, cy))
     d = np.abs(got.numpy().astype(np.int32) - jax_out.astype(np.int32))
     assert d.max() <= 1 and (d > 0).sum() <= 166, (d.max(), (d > 0).sum())
+
+
+# Quantized coordinates saturate at int16: on map rows past 32767, s >> 5
+# stays 32767.  The JAX package zeroes a pixel whose row offset iy - y lies
+# outside the plan's row_offsets (_remap_section_math); cv::remap repeats
+# the saturated row.  The port takes JAX's rule, per pixel, and equals the
+# oracle everywhere else.
+SAT_ROWS, SAT_WIDTH, SAT_SHIFT = 32800, 8, (0.4, 1.3)
+
+
+@pytest.fixture(scope="module")
+def saturated():
+    """A quantized 32800 x 8 section at (dx, dy) = (0.4, +1.3): -> (src,
+    plan, the expected result: JAX's zeros on its rows of zeros, the
+    oracle elsewhere)."""
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 65536, (SAT_ROWS, SAT_WIDTH), dtype=np.uint16)
+    want = cv_exact.remap_cubic_u16_exact(
+        src, *shift_maps(*SAT_SHIFT, SAT_ROWS, SAT_WIDTH),
+        quantized_coords=True)
+    jax_out = np.asarray(jres.remap_constant_shift_u16(
+        jnp.asarray(src), *SAT_SHIFT, quantized_coords=True))
+    zero = ~jax_out.any(axis=1)
+    # JAX gives 0 on exactly the saturated rows, and the oracle does not
+    assert np.array_equal(zero, np.arange(SAT_ROWS) >= 32768)
+    assert want[zero].all()
+    want[zero] = 0
+    plan = resample.plan_for_constant_shift(*SAT_SHIFT, SAT_WIDTH, True)
+    return src, plan, want
+
+
+@pytest.mark.parametrize("chunk", [1000, 2048, 3000])
+def test_saturated_rows_zero_as_jax(saturated, chunk, monkeypatch):
+    """The whole section in plain-version chunks of 1000, 2048 and 3000
+    rows: 0 where JAX gives 0, the oracle elsewhere, byte for byte."""
+    src, plan, want = saturated
+    monkeypatch.setattr(resample, "PARITY_CHUNK_ROWS", chunk)
+    got = resample.remap_section_u16(torch.from_numpy(src), plan)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("a,first,count", [(32500, 100, 200),
+                                           (31000, 700, 1090)])
+def test_saturated_rows_zero_through_origin(saturated, a, first, count):
+    """A window of the section from row ``a`` to its end, remapped as the
+    line mesh remaps a shard (``origin`` = ``a``): its output rows, which
+    run past map row 32767, are the whole section's."""
+    src, plan, want = saturated
+    got = resample.remap_section_u16(torch.from_numpy(src[a:]), plan,
+                                     first=first, count=count, origin=a)
+    np.testing.assert_array_equal(got.numpy(),
+                                  want[a + first:a + first + count])
+
+
+def _no_build(monkeypatch):
+    """Make any build or launch of a kernel fail the test."""
+    def refuse(*args, **kw):
+        raise AssertionError("a kernel was built or launched")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "rows"])
+def test_kernel_f_refuses_bad_arguments(bad, monkeypatch):
+    """The kernel's wrapper refuses, before any build, a section that is
+    not uint16, a plan of another width, and output rows past the
+    section's end."""
+    _no_build(monkeypatch)
+    before = dict(_build.LAUNCHES)
+    plan = resample.plan_for_constant_shift(
+        0.4, 1.3, 48 if bad == "width" else 64, True)
+    src = torch.empty((32, 64), device="meta",
+                      dtype=torch.int16 if bad == "dtype" else torch.uint16)
+    first, count = (30, 3) if bad == "rows" else (0, 32)
+    with pytest.raises(ValueError, match="remap_section_u16"):
+        resample._remap_section_cuda(src, plan, first, count, 0)
+    assert _build.LAUNCHES == before
+
+
+def test_remap_section_off_cpu_refuses_before_build(monkeypatch):
+    """A tensor off the CPU never takes the plain version: without a card
+    it raises before any build."""
+    _no_build(monkeypatch)
+    plan = resample.plan_for_constant_shift(0.4, 1.3, 64, True)
+    src = torch.empty((32, 64), device="meta", dtype=torch.uint16)
+    with pytest.raises(RuntimeError, match="no kernel for meta"):
+        resample.remap_section_u16(src, plan)
+
+
+@MODES
+def test_remap_section_on_cpu_never_builds(quantized, rng, monkeypatch):
+    """On CPU tensors remap_section_u16 runs the plain version and never
+    reaches _build."""
+    _no_build(monkeypatch)
+    before = dict(_build.LAUNCHES)
+    src = torch.from_numpy(rng.integers(0, 65536, (40, 64), dtype=np.uint16))
+    plan = resample.plan_for_band_alignment(*POLY[0], 64, quantized)
+    out = resample.remap_section_u16(src, plan, first=3, count=30)
+    assert out.shape == (30, 64) and out.dtype == torch.uint16
+    assert _build.LAUNCHES == before
