@@ -59,12 +59,16 @@ Phases (any failure exits non-zero and prints no result line):
    oracle on a 2048 x 3072 band section and a 1024 x 12288 constant-shift
    section, and against its plain version at 30000 x 12288 (shift), 20000
    x 3072 (band), on a 32800 x 3072 section at (0.4, +1.3) whose quantized
-   rows past 32767 saturate (0 there, the oracle on the rows below) and on
+   rows past 32767 saturate (0 there, the oracle on the rows below), on
    a line mesh's call (a 5000-row window, ``first`` 7, ``count`` 4986,
-   ``origin`` 20000); its ms a 30000 x 12288 section and a 20000 x 3072
+   ``origin`` 20000) and on the kernel's other paths (a steep band
+   polynomial, widths 3071 and 1001, a 20-row section, a call whose taps
+   leave the section's top and bottom, windows split to fewer rows a band
+   and blocks that read device memory, map rows past 2^22, a section of
+   2^31 elements); its ms a 30000 x 12288 section and a 20000 x 3072
    band section beside the plain version's, its bound and
-   ``F.grid_sample``'s (bicubic, a yardstick the port never calls; its max
-   DN from the kernel printed), and its peak device memory; then
+   ``F.grid_sample``'s at both (bicubic, a yardstick the port never calls;
+   its max DN from the kernel printed), and its peak device memory; then
    ``prestitch`` and the default action through ``cli.main`` without
    ``--fast`` in each ``--coord-mode`` and with ``--fast``, on 40960-line
    RAW files (two 30000-row prestitch sections with the rolling-buffer
@@ -1524,43 +1528,60 @@ SATURATED_ROWS = 32800
 # map row of its row 0 (parallel/sharded.plan_remap_sharded)
 MESH_CALL = dict(rows=5000, first=7, count=4986, origin=20000)
 MODES = ((False, "continuous"), (True, "quantized"))
+# kernel (f)'s other paths: a band polynomial whose G spans 46 rows across
+# 3072 px, one that also starts above the section (G from -5), one whose
+# taps spread over ~26 rows a 256-column block (its staged windows take
+# fewer rows a band) and one over thousands (some blocks read device memory)
+STEEP_POLY = ((4.3, -2.1e-5), (3.6, 1.5e-2, -3.0e-8))
+EDGE_POLY = ((4.3, -2.1e-5), (-20.0, 1.5e-2, -3.0e-8))
+SPLIT_POLY = ((0.0, 0.0), (0.0, 1.0e-1, 0.0))
+DIRECT_POLY = ((0.0, 0.0), (0.0, 0.0, 6.0e-5))
 
 
-def parity_plan(kind, width, quantized, shift=PARITY_SHIFT):
+def parity_plan(kind, width, quantized, shift=PARITY_SHIFT,
+                poly=PARITY_POLY):
     from opticalimageprocessor_tpu_torch.ops import resample
 
     if kind == "band":
-        return resample.plan_for_band_alignment(*PARITY_POLY, width,
-                                                quantized)
+        return resample.plan_for_band_alignment(*poly, width, quantized)
     return resample.plan_for_constant_shift(*shift, width, quantized)
+
+
+# float32 operations a pixel of kernel (f)'s function, at the least: the
+# 16 tap products, the 15 sums and the rounding (rint and the clip's two
+# bounds); none may fuse into an FMA, so each is one instruction at half
+# the F32_FLOPS rate, which counts an FMA as two operations
+SECTION_OPS = 16 + 15 + 3
 
 
 def remap_section_bound(rows, count, width) -> dict:
     """Kernel (f): the (rows, W) uint16 section read, the (count, W) uint16
     output written and the plan's 28 bytes a column (tap0, 4 weights, g),
-    against its float32 operations: 75 a pixel (the vertical coordinate 2-3,
-    the 4 row weights 21, the 16 tap weights and 16 products, 15 sums, the
-    rounding 3, one conversion of the input)."""
+    against the least float32 work of the function, SECTION_OPS a pixel
+    at the unfused rate F32_FLOPS / 2 (the weights and coordinates repeat
+    down a column and are not counted)."""
     return bound(2 * rows * width + 2 * count * width + 28 * width,
-                 operations=(75 * count * width, F32_FLOPS))
+                 operations=(SECTION_OPS * count * width, F32_FLOPS / 2))
 
 
-def grid_sample_remap(torch, sec_f, dx, dy):
+def grid_sample_remap(torch, sec_f, mapx_cols, g):
     """``F.grid_sample`` bicubic (A = -0.75), zeros outside, align_corners,
-    of the float32 section at mapx = x + dx, mapy = y + dy: the PyTorch
-    call nearest to kernel (f)'s function, a yardstick the port never
-    calls.  -> a function that computes it (float32, not rounded)."""
+    of the float32 section at mapx (a column's) and mapy = y + g(x): the
+    PyTorch call nearest to kernel (f)'s function, a yardstick the port
+    never calls.  -> a function that computes it (float32, not rounded)."""
     import torch.nn.functional as F
 
     rows, width = sec_f.shape
     dev = sec_f.device
-    gx = (torch.arange(width, dtype=torch.float64, device=dev) + dx) \
+    gx = torch.from_numpy(np.asarray(mapx_cols, np.float64)).to(dev) \
         * (2.0 / (width - 1)) - 1.0
-    gy = (torch.arange(rows, dtype=torch.float64, device=dev) + dy) \
+    gy = (torch.arange(rows, dtype=torch.float64, device=dev)[:, None]
+          + torch.from_numpy(np.asarray(g, np.float64)).to(dev)[None, :]) \
         * (2.0 / (rows - 1)) - 1.0
     grid = torch.empty((1, rows, width, 2), dtype=torch.float32, device=dev)
     grid[..., 0] = gx.to(torch.float32)[None, :]
-    grid[..., 1] = gy.to(torch.float32)[:, None]
+    grid[..., 1] = gy.to(torch.float32)
+    del gy
     inp = sec_f[None, None]
     return lambda: F.grid_sample(inp, grid, mode="bicubic",
                                  padding_mode="zeros", align_corners=True)
@@ -1574,8 +1595,13 @@ def parity_function_gate(dev, rng, res, records):
     32800 x 3072 section at (0.4, +1.3) whose rows past 32767 saturate (0
     there, as the JAX package gives; the oracle below them) and on a line
     mesh's call (a 5000-row window, ``first`` 7, ``count`` 4986, ``origin``
-    20000).  Then its ms a 30000 x 12288 and a 20000 x 3072 section (CUDA
-    events) beside the plain version's, its bound and ``F.grid_sample``'s
+    20000); and, against the plain version, the kernel's other paths: a
+    steep band polynomial, widths 3071 and 1001, a 20-row section, output
+    rows from row 2 with an origin whose taps leave the section's top and
+    bottom, windows split to 8 rows a band, blocks that read device memory,
+    map rows past 2^22 and the last rows of a section of 2^31 elements.
+    Then its ms a 30000 x 12288 and a 20000 x 3072 section (CUDA events)
+    beside the plain version's, its bound and ``F.grid_sample``'s at each
     (its max DN against the kernel printed, not gated), and the peak device
     memory of one 30000 x 12288 section."""
     import torch
@@ -1645,6 +1671,58 @@ def parity_function_gate(dev, rng, res, records):
         check(got.shape == (m["count"], BW), f"mesh call: {got.shape}")
         held(f"mesh call {m} {mode} vs plain", got, plain(dsrc, p, *args))
     del dsrc, got
+    # the kernel's other paths, each against the plain version: a steep
+    # band polynomial; widths that are no multiple of 8 (element copies,
+    # 2-byte stores: 3071) and of the 256-column block (1001); a section
+    # shorter than a band of 32 rows; output rows from row 2 with an origin
+    # whose taps leave the section at its top and bottom; windows that take
+    # 8 rows a band, and blocks that read device memory; map rows past
+    # 2^22 (the generic coordinates); a section of 2^31 elements or more
+    # (64-bit offsets: its last rows).  Their sections come from a
+    # generator of their own, so that the scene phase 7 synthesises from
+    # ``rng`` after this gate stays the one its stt and cut checks expect.
+    paths_rng = np.random.default_rng(SEED + 14)
+    big_rows = -(-(1 << 31) // W)
+    paths = (("steep", "band", 2048, BW, STEEP_POLY, (0, None, 0)),
+             ("width 3071", "shift", 600, 3071, None, (0, None, 0)),
+             ("width 1001", "band", 600, 1001, STEEP_POLY, (0, None, 0)),
+             ("short", "band", 20, BW, STEEP_POLY, (0, None, 0)),
+             ("edges", "band", 600, BW, EDGE_POLY, (2, 596, 777)),
+             ("split", "band", 2000, BW, SPLIT_POLY, (0, None, 0)),
+             ("direct", "band", 600, BW, DIRECT_POLY, (0, None, 0)),
+             ("far origin", "band", 300, BW, PARITY_POLY,
+              (0, None, (1 << 22) + 5)),
+             ("64-bit", "shift", big_rows, W, None, (big_rows - 300, 256, 0)))
+    for tag, kind, rows, width, poly, (first, count, origin) in paths:
+        if rows * width >= 1 << 31:
+            # zeros but for the rows the call reads
+            dsrc = torch.zeros((rows, width), dtype=torch.uint16, device=dev)
+            dsrc[first - 16:].copy_(torch.from_numpy(paths_rng.integers(
+                0, 65536, (rows - first + 16, width), dtype=np.uint16)))
+        else:
+            dsrc = torch.from_numpy(paths_rng.integers(
+                0, 65536, (rows, width), dtype=np.uint16)).to(dev)
+        n = rows - first if count is None else count
+        for quantized, mode in MODES:
+            p = parity_plan(kind, width, quantized, poly=poly or PARITY_POLY)
+            geo = resample.remap_section_geometry(
+                p, rows, first, n, origin,
+                aligned=dsrc.data_ptr() % 16 == 0)
+            got = resample.remap_section_u16(dsrc, p, first, n, origin)
+            check(got.shape == (n, width), f"{tag}: {got.shape}")
+            held(f"{tag} ({rows}, {width}) [{first}, {first + n}) origin "
+                 f"{origin} {mode} (rows a band "
+                 f"{sorted(set(geo.table[:, 4].tolist()))}, narrow "
+                 f"{geo.narrow}, 64-bit {geo.wide_offsets}) vs plain", got,
+                 plain(dsrc, p, first, n, origin))
+            res[f"path_{tag}_{mode}_bands"] = sorted(
+                set(geo.table[:, 4].tolist()))
+        del dsrc, got
+    for tag, want in (("split", lambda b: 0 < min(b) < 32),
+                      ("direct", lambda b: 0 in b and max(b) > 0),
+                      ("steep", lambda b: b == [32])):
+        check(all(want(res[f"path_{tag}_{m}_bands"]) for _, m in MODES),
+              f"kernel (f) {tag}: rows a band {res[f'path_{tag}_continuous_bands']}")
     torch.cuda.empty_cache()
 
     for tag, rows, width, kind in (("section", 30000, W, "shift"),
@@ -1668,32 +1746,35 @@ def parity_function_gate(dev, rng, res, records):
         res[f"{tag}_plain_ms"] = time_ms(lambda: plain(sec, p), 2)
         res[f"{tag}_bound"] = remap_section_bound(rows, rows, width)
         res[f"{tag}_shape"] = f"({rows}, {width}) u16, {kind}, continuous"
-        if tag == "section":
-            sec_f = sec.to(torch.float32)
-            lib = grid_sample_remap(torch, sec_f, *PARITY_SHIFT)
-            ref = resample.remap_section_u16(sec, p).to(torch.int32)
-            d = (torch.clamp(torch.round(lib()[0, 0]), 0, 65535).to(
-                torch.int32) - ref).abs()
-            res["grid_sample_max_dn"] = int(d.max())
-            res["grid_sample_share_over_1dn"] = float(
-                (d > 1).double().mean())
-            del d, ref
-            res["grid_sample_ms"] = time_ms(lib, 5)
-            del lib, sec_f
-        del sec
+        sec_f = sec.to(torch.float32)
+        lib = grid_sample_remap(torch, sec_f, *(
+            shift_cols(*PARITY_SHIFT, width) if kind == "shift"
+            else poly_cols(*PARITY_POLY, width)))
+        ref = resample.remap_section_u16(sec, p).to(torch.int32)
+        d = (torch.clamp(torch.round(lib()[0, 0]), 0, 65535).to(
+            torch.int32) - ref).abs()
+        res[f"{tag}_grid_sample_max_dn"] = int(d.max())
+        res[f"{tag}_grid_sample_share_over_1dn"] = float(
+            (d > 1).double().mean())
+        del d, ref
+        res[f"{tag}_grid_sample_ms"] = time_ms(lib, 5)
+        del lib, sec_f, sec
         torch.cuda.empty_cache()
     say("[parity] kernel (f): " + json.dumps(
         {k: v for k, v in res.items() if not k.startswith("oracle")}))
     records["remap_section"] = dict(
         max_abs_err=float(worst), ms=res["section_ms"],
-        plain_ms=res["section_plain_ms"], library_ms=res["grid_sample_ms"],
+        plain_ms=res["section_plain_ms"],
+        library_ms=res["section_grid_sample_ms"],
         library="torch.nn.functional.grid_sample(mode='bicubic', "
                 "padding_mode='zeros', align_corners=True) on the float32 "
-                f"section: max {res['grid_sample_max_dn']} DN from the "
-                "kernel (float32 normalised coordinates)",
+                "section: max "
+                f"{res['section_grid_sample_max_dn']} DN from the kernel "
+                "(float32 normalised coordinates)",
         shape=res["section_shape"], **res["section_bound"],
         band_section_ms=res["band_section_ms"],
         band_section_bound_ms=res["band_section_bound"]["bound_ms"],
+        band_section_library_ms=res["band_section_grid_sample_ms"],
         section_peak_gb=res["section_peak_gb"])
 
 
@@ -3553,7 +3634,8 @@ def main() -> int:
                                  "align_bound_ms", "mss2_ms", "mss2_bound_ms",
                                  "section_ms", "section_bound_ms", "library",
                                  "shapes", "band_section_ms",
-                                 "band_section_bound_ms", "section_peak_gb")
+                                 "band_section_bound_ms",
+                                 "band_section_library_ms", "section_peak_gb")
                if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -60,7 +60,8 @@ _SIGNATURES = {
     ],
     "oip_row_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "oip_remap_section": [
-        _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _P,
     ],
 }
 

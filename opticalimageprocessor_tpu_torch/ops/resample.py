@@ -32,7 +32,7 @@ order.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -637,6 +637,10 @@ class RemapPlan:
     col_shifts: tuple[int, ...]   # range of col_tap0[x] - x
     row_offsets: tuple[int, ...]  # range of floor(mapy(y, x)) - y
     quantized: bool
+    # kernel (f)'s device copies of the plan (by device) and launch
+    # geometries (by call), made at first use
+    cuda_cache: dict = field(default_factory=dict, compare=False,
+                             repr=False)
 
     @property
     def halo_top(self) -> int:
@@ -803,6 +807,108 @@ def _check_section_args(src: torch.Tensor, plan: RemapPlan, first: int,
             f"outside the section's {rows}")
 
 
+# kernel (f)'s block (csrc/remap_section.cu): threads, each owning 2
+# adjacent output columns; output rows a band of the staged source window
+# (preferred first) and a block's row chunk (preferred, least)
+SECTION_THREADS = 128
+SECTION_COLS = 2 * SECTION_THREADS
+SECTION_BAND_ROWS = (32, 16, 8, 4)
+_SECTION_CHUNK_ROWS = (256, 64)
+SECTION_SMEM = 48 * 1024   # bytes of double-buffered window a block
+_MAX_GRID_Y = 65535
+# |mapy| below which the kernel's float bit tricks take the coordinate:
+# floor for continuous maps (|v| < 2^22), rint(32 v) for quantized ones
+_NARROW = {False: 1 << 22, True: 1 << 17}
+
+
+@dataclass(frozen=True)
+class SectionGeometry:
+    """Kernel (f)'s launch geometry (:func:`remap_section_geometry`)."""
+
+    chunk: int                 # output rows a block walks
+    grid: tuple[int, int]      # (column blocks, row chunks, <= 65535)
+    table: np.ndarray          # (column blocks, 5) int32, see below
+    smem: int                  # bytes of dynamic shared memory a block
+    narrow: bool               # coordinates within the float bit tricks
+    wide_offsets: bool         # element offsets need 64 bits
+    stage16: bool              # 16-byte cp.async copies of the window
+
+
+def remap_section_geometry(plan: RemapPlan, rows: int, first: int,
+                           count: int, origin: int, n_sm: int = 132,
+                           aligned: bool = True) -> SectionGeometry:
+    """Kernel (f)'s launch geometry for output rows ``[first, first +
+    count)`` of a (rows, W) section whose row 0 is map row ``origin``.
+
+    A block owns :data:`SECTION_COLS` output columns and a chunk of output
+    rows (256, halved down to 64 while the grid has fewer than 8 blocks an
+    SM), which it walks in bands.  For each band it stages the source
+    window its pixels read in shared memory, double-buffered.  Row ``b`` of
+    ``table`` describes column block ``b``: the window's first column
+    (a multiple of 8) and its pitch in elements (a multiple of 8, from the
+    block's least ``col_tap0`` to its greatest plus 4), the least and
+    greatest row offset ``iy - Y`` its window holds (``lo``, ``hi``: the
+    band of output rows ``[y0, y1)`` reads source rows ``[y0 + lo - 1, y1
+    + hi + 2)``), and its rows a band: the largest of
+    :data:`SECTION_BAND_ROWS` whose two windows fit in
+    :data:`SECTION_SMEM` bytes, or 0 where none does (the block then reads
+    its taps from device memory).
+
+    The row offsets of a block are ``floor(g) - 1`` to ``floor(g) + 1``
+    (+1 quantized) over its columns, as :func:`build_remap_plan` reckons
+    the plan's, where the coordinates are narrow enough for that to hold
+    (below ``2^22`` continuous, ``2^17`` quantized) and no quantized row
+    can saturate at int16; else the plan's whole range, which holds the
+    taps of every pixel that is not 0.  ``stage16`` needs a width that is
+    a multiple of 8 and a 16-byte aligned section (``aligned``)."""
+    width = plan.width
+    q = bool(plan.quantized)
+    r_lo, r_hi = plan.row_offsets[0], plan.row_offsets[-1]
+    y_lo, y_hi = first + origin, first + max(count, 1) - 1 + origin
+    g_lo, g_hi = float(plan.g.min()), float(plan.g.max())
+    narrow = max(abs(y_lo + g_lo), abs(y_lo + g_hi), abs(y_hi + g_lo),
+                 abs(y_hi + g_hi)) + 2 < _NARROW[q]
+    saturates = q and not (-32768 <= y_lo + math.floor(g_lo) - 1
+                           and y_hi + math.floor(g_hi) + 2 <= 32767)
+    n_cb = -(-width // SECTION_COLS)
+    starts = np.arange(n_cb) * SECTION_COLS
+    tap0 = plan.col_tap0.astype(np.int64)
+    cw0 = np.minimum.reduceat(tap0, starts) // 8 * 8
+    cw1 = -(-(np.maximum.reduceat(tap0, starts) + 4) // 8) * 8
+    if narrow and not saturates:
+        g_floor = np.floor(plan.g)
+        lo = np.maximum(np.minimum.reduceat(g_floor, starts) - 1, r_lo)
+        hi = np.minimum(np.maximum.reduceat(g_floor, starts) + 1 + q, r_hi)
+    else:
+        lo, hi = np.full(n_cb, r_lo), np.full(n_cb, r_hi)
+    # bytes of a block's two windows at each choice of rows a band
+    bands = np.array(SECTION_BAND_ROWS)
+    need = 2 * (bands[:, None] + hi - lo + 3) * 2 * (cw1 - cw0)
+    fits = need <= SECTION_SMEM
+    pick = fits.argmax(axis=0)
+    staged = fits.any(axis=0)
+    band = np.where(staged, bands[pick], 0)
+    smem = int(need[pick, np.arange(n_cb)][staged].max(initial=0))
+    table = np.stack([cw0, cw1 - cw0, lo, hi, band], axis=1)
+    chunk, least = _SECTION_CHUNK_ROWS
+    while chunk > least and n_cb * -(-count // chunk) < 8 * n_sm:
+        chunk //= 2
+    n_chunks = max(1, -(-count // chunk))
+    return SectionGeometry(
+        chunk=chunk, grid=(n_cb, min(n_chunks, _MAX_GRID_Y)),
+        table=table.astype(np.int32), smem=smem, narrow=bool(narrow),
+        wide_offsets=rows * width >= 1 << 31,
+        stage16=aligned and width % 8 == 0)
+
+
+def quantized_row_weights() -> np.ndarray:
+    """(32, 4) float32: the row weights of quantized coordinates, the
+    plain version's ``_cubic_weights_f32((s & 31) / 32)`` for each of the
+    32 fractions (kernel (f) looks them up)."""
+    fy = torch.arange(32, dtype=torch.float32) * (1.0 / 32.0)
+    return torch.stack(_cubic_weights_f32(fy), dim=1).numpy()
+
+
 def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
                         count: int, origin: int) -> torch.Tensor:
     """Kernel (f), ``csrc/remap_section.cu``: one launch a call."""
@@ -811,18 +917,35 @@ def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
     src = src.contiguous()
     rows, width = src.shape
     dev = src.device
-    tap0 = torch.from_numpy(plan.col_tap0.astype(np.int32)).to(dev)
-    wx = torch.from_numpy(np.ascontiguousarray(plan.wx, np.float32)).to(dev)
-    g = torch.from_numpy(np.ascontiguousarray(plan.g, np.float64)).to(dev)
     out = torch.empty((count, width), dtype=torch.uint16, device=dev)
-    if out.numel():
-        _build.launch(
-            "remap_section", "oip_remap_section", src.data_ptr(),
-            tap0.data_ptr(), wx.data_ptr(), g.data_ptr(), out.data_ptr(),
-            rows, width, first, count, origin, int(plan.quantized),
-            plan.row_offsets[0], plan.row_offsets[-1], _build.stream_of(src),
-            device=dev,
-        )
+    if not out.numel():
+        return out
+    cache = plan.cuda_cache
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if dev not in cache:
+        cache[dev] = (up(plan.col_tap0.astype(np.int32)),
+                      up(plan.wx.astype(np.float32)),
+                      up(plan.g.astype(np.float64)),
+                      up(quantized_row_weights()))
+    tap0, wx, g, wy = cache[dev]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    key = (dev, rows, first, count, origin, n_sm, src.data_ptr() % 16 == 0)
+    if key not in cache:
+        geo = remap_section_geometry(plan, *key[1:])
+        cache[key] = (geo, up(geo.table))
+    geo, table = cache[key]
+    _build.launch(
+        "remap_section", "oip_remap_section", src.data_ptr(),
+        tap0.data_ptr(), wx.data_ptr(), g.data_ptr(), wy.data_ptr(),
+        table.data_ptr(), out.data_ptr(), rows, width, first, count, origin,
+        int(plan.quantized), plan.row_offsets[0], plan.row_offsets[-1],
+        geo.chunk, *geo.grid, geo.smem, int(geo.narrow),
+        int(geo.wide_offsets), int(geo.stage16), _build.stream_of(src),
+        device=dev,
+    )
     return out
 
 
