@@ -37,7 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
    ALIGNED.TIFFs byte for byte -- with every kernel's launch count read
    around this run;
 4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
-   path against the plain path with pinned estimates, then timed;
+   path against the plain path with pinned estimates (its time is the
+   benchmark's, ``portbench/``);
 5. the file workflow through ``cli.main`` on 16384-line RAW files:
    ``prestitch --fast`` on a CMOS pair 3 rows apart (kernel (c)'s route)
    and on one 9 rows apart (the staged route, kernel (e)), the default
@@ -941,7 +942,7 @@ def plain_transform(pipe, pan1, pan2, mss, cx, cy, raw_dx, raw_dy,
     return aligned, stitched
 
 
-def phase_pipeline(dev, power, lines: int = 32768):
+def phase_pipeline(dev, lines: int = 32768):
     import torch
 
     from opticalimageprocessor_tpu_torch.models.device_pipeline import (
@@ -979,30 +980,6 @@ def phase_pipeline(dev, power, lines: int = 32768):
         f"{share:.4%}")
     check(dmax == 0, "stitched vs plain")
     del al_p, st_p, aligned, stitched
-
-    def step():
-        out = pipe(pan1, pan2, mss)
-        return int(out[0][0, 0, 0])           # forced readback
-
-    def estimate():
-        return int(pipe.estimate(pan1, pan2, mss)[2][0])
-
-    est = pipe.estimate(pan1, pan2, mss)
-
-    def transform():
-        out = pipe.transform(pan1, pan2, mss, *est[:2], *est[3:5])
-        return int(out[0][0, 0, 0])
-
-    torch.cuda.reset_peak_memory_stats()
-    step()
-    ms = time_ms(step, 3)
-    ms_est = time_ms(estimate, 3)
-    ms_tr = time_ms(transform, 3)
-    px = 2 * lines * W + 4 * (lines // 4) * BW
-    res = dict(lines=lines, ms=ms, estimate_ms=ms_est, transform_ms=ms_tr,
-               gpix_per_s=px / (ms * 1e-3) / 1e9, card=power,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    say(f"[pipe] {json.dumps(res)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3561,7 +3538,7 @@ def main() -> int:
         launches = phase_cli(dev, scene_dir)
         shutil.rmtree(scene_dir)
         torch.cuda.empty_cache()
-        phase_pipeline(dev, power)
+        phase_pipeline(dev)
         torch.cuda.empty_cache()
         mesh_launches = [phase_mesh_scene(dev, power)]
         torch.cuda.empty_cache()

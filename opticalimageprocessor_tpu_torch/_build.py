@@ -10,7 +10,9 @@ fallback to the plain PyTorch versions for CUDA tensors.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that its main path went through
-the kernels.
+the kernels.  The library's load is timed once a process: :data:`load_s`
+(the source hash, the build when there is one, ``dlopen`` and binding)
+and :data:`built`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -68,6 +71,8 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output (ptxas register/spill report)
+load_s: float | None = None  # seconds library()'s first call took
+built: bool | None = None    # whether that call built the library
 
 
 def reset_launch_counts() -> None:
@@ -100,12 +105,14 @@ def _library_path() -> Path:
 
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use; raises if the build fails."""
-    global _lib, build_log
+    global _lib, build_log, load_s, built
     with _lock:
         if _lib is not None:
             return _lib
+        t0 = time.perf_counter()
         so = _library_path()
-        if not so.exists():
+        built = not so.exists()
+        if built:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
             tag = f"{so.stem}.{os.getpid()}"
@@ -141,6 +148,7 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
+        load_s = time.perf_counter() - t0
         return lib
 
 

@@ -63,19 +63,30 @@ def _require_file(path: str, opt: str) -> None:
 
 def _print_stage_report() -> None:
     """Per-stage seconds/MBps summary (the reference's ubiquitous
-    stop_watch/comma_sep instrumentation, aggregated)."""
-    from .utils.logging import olog, stage_report
+    stop_watch/comma_sep instrumentation, aggregated), then, after a
+    ``--profile`` run, the spans' device ms a call and the counters
+    (``utils.logging.span_report``)."""
+    from .utils.logging import olog, span_report, stage_report
 
     rep = stage_report()
-    if not rep:
-        return
-    olog("==== stage report ====")
-    for name, st in rep.items():
-        olog(
-            "%-24s %8.3f s  %10.1f MBps  (%d calls)",
-            name, st["seconds"], st["MBps"] if st["bytes"] else 0.0,
-            st["calls"],
-        )
+    if rep:
+        olog("==== stage report ====")
+        for name, st in rep.items():
+            olog(
+                "%-24s %8.3f s  %10.1f MBps  (%d calls)",
+                name, st["seconds"], st["MBps"] if st["bytes"] else 0.0,
+                st["calls"],
+            )
+    spans = span_report()
+    if spans:
+        olog("==== span report ====")
+        for name, sp in spans.items():
+            if "count" in sp:
+                olog("%-24s %8d  (%d calls)", name, sp["count"],
+                     sp["calls"])
+            else:
+                olog("%-24s %10.3f device ms a call  (%d calls)", name,
+                     sp["device_ms"] / sp["calls"], sp["calls"])
 
 
 _PROFILE_HELP = ("write a torch.profiler trace of the run (host activity, "

@@ -45,6 +45,7 @@ from ..ops import phasecorr
 from ..ops.phasecorr_cuda import windowed_crosspower_fused_tiles
 from ..ops.resample import remap_bands_interleaved, remap_const_stitch_chunked
 from ..ops.rrc import rrc_apply
+from ..utils.logging import SCENE_SPAN, span, to_host
 
 RRCParams = tuple[torch.Tensor, torch.Tensor]
 
@@ -158,13 +159,16 @@ def correlate_tiles(geom: RegGeometry, pan_tiles, band_tiles,
     4) float32.  The line mesh runs it on each device's block of tiles."""
     pad = (geom.corr_rows, geom.cols)
     win = phasecorr.clamp_win(win, pad)
-    fpan = phasecorr.rfft2_padded(torch.cat(pan_tiles), pad)
-    pan_tiles.clear()
-    fband = phasecorr.band_full_spectrum_small(torch.cat(band_tiles))
-    band_tiles.clear()
-    return windowed_crosspower_fused_tiles(
-        fpan, fband, pad, geom.brows, win[0], win[1]
-    )
+    dev = pan_tiles[0].device
+    with span("oip.register.spectra", dev):
+        fpan = phasecorr.rfft2_padded(torch.cat(pan_tiles), pad)
+        pan_tiles.clear()
+        fband = phasecorr.band_full_spectrum_small(torch.cat(band_tiles))
+        band_tiles.clear()
+    with span("oip.register.correlate", dev):
+        return windowed_crosspower_fused_tiles(
+            fpan, fband, pad, geom.brows, win[0], win[1]
+        )
 
 
 def fit_tiles(geom: RegGeometry, dx, dy, rs,
@@ -172,14 +176,15 @@ def fit_tiles(geom: RegGeometry, dx, dy, rs,
     """The fit half of :func:`register_tiles`: the (T, 4) statistics of
     every (section, slice) tile in section order -> ``(coeffs,
     n_valid)``."""
-    cx = (
-        torch.arange(geom.slices, device=dx.device) * geom.cols
-        + geom.cols // 2
-    ).to(torch.float32).repeat(geom.n_sections)
-    w = (rs.T >= threshold).to(torch.float32)             # (4, T)
-    n_valid = w.sum(dim=1).to(torch.int32)
-    coeff_x = _fit_poly(cx, dx.T, 1, w)
-    coeff_y = _fit_poly(cx, dy.T, 2, w)
+    with span("oip.register.fit", dx.device):
+        cx = (
+            torch.arange(geom.slices, device=dx.device) * geom.cols
+            + geom.cols // 2
+        ).to(torch.float32).repeat(geom.n_sections)
+        w = (rs.T >= threshold).to(torch.float32)             # (4, T)
+        n_valid = w.sum(dim=1).to(torch.int32)
+        coeff_x = _fit_poly(cx, dx.T, 1, w)
+        coeff_y = _fit_poly(cx, dy.T, 2, w)
     return [(coeff_x[b], coeff_y[b]) for b in range(MSS_BANDS)], n_valid
 
 
@@ -221,12 +226,14 @@ def register_fast(
     """
     geom = register_geometry(pan.shape[0], pan.shape[1], slices, n_sections)
     pan_tiles, band_tiles = [], []
-    for sec in range(geom.n_sections):
-        row0 = geom.row0(sec)
-        p, b = section_tiles(geom, pan[row0:], mss[:, row0 // MSS_BANDS:],
-                             pan_params, mss_params)
-        pan_tiles.append(p)
-        band_tiles.append(b)
+    with span("oip.register.tiles", pan.device):
+        for sec in range(geom.n_sections):
+            row0 = geom.row0(sec)
+            p, b = section_tiles(geom, pan[row0:],
+                                 mss[:, row0 // MSS_BANDS:], pan_params,
+                                 mss_params)
+            pan_tiles.append(p)
+            band_tiles.append(b)
     return register_tiles(geom, pan_tiles, band_tiles, win, threshold)
 
 
@@ -234,7 +241,7 @@ def check_registration_valid(n_valid) -> None:
     """Host-side min-count check on :func:`register_fast`'s valid counts
     (the reference's FilterInterBandShiftValues failure,
     preproc.h:505-510)."""
-    counts = [int(v) for v in n_valid]
+    counts = [int(v) for v in to_host(n_valid)]
     for b, n in enumerate(counts):
         if n < IBCV_MIN_COUNT:
             raise RuntimeError(
@@ -319,20 +326,21 @@ def stt_estimate_fast(
     lps, offs = stt_geometry(lines, sections, line_per_section)
     ow = overlap_cols - edge_cols
     c1 = width - overlap_cols
-    t1 = torch.stack(
-        [pan1[o:o + lps, c1:c1 + ow].to(torch.float32) for o in offs]
-    )
-    t2 = torch.stack(
-        [pan2[o:o + lps, edge_cols:edge_cols + ow].to(torch.float32)
-         for o in offs]
-    )
-    return stt_average(*stt_peaks(t1, t2, win), threshold, max_delta_y)
+    with span("oip.stt", pan1.device):
+        t1 = torch.stack(
+            [pan1[o:o + lps, c1:c1 + ow].to(torch.float32) for o in offs]
+        )
+        t2 = torch.stack(
+            [pan2[o:o + lps, edge_cols:edge_cols + ow].to(torch.float32)
+             for o in offs]
+        )
+        return stt_average(*stt_peaks(t1, t2, win), threshold, max_delta_y)
 
 
 def check_stt_valid(n_valid) -> None:
     """Host-side check of :func:`stt_estimate_fast`'s valid count
     (stitcher.h:187-190)."""
-    if int(n_valid) == 0:
+    if int(to_host(n_valid)) == 0:
         raise RuntimeError(
             "No valid delta value found for stitching parameter calculating"
         )
@@ -435,34 +443,37 @@ class ScenePipeline(nn.Module):
 
     def estimate(self, pan1, pan2, mss):
         """-> (cx (4, 2), cy (4, 3), n_valid (4,), raw_dx, raw_dy, n_stt)."""
-        return self._estimate(
-            pan1, pan2[:, :self.overlap_cols], mss,
-            (self.pan1_k, self.pan1_b), (self.mss_k, self.mss_b),
-        )
+        with span("oip.estimate", pan1.device):
+            return self._estimate(
+                pan1, pan2[:, :self.overlap_cols], mss,
+                (self.pan1_k, self.pan1_b), (self.mss_k, self.mss_b),
+            )
 
     def clamp_stt(self, raw_dx, raw_dy) -> tuple[float, float]:
-        """The stt deltas clamped to the resample's supported band."""
+        """The stt deltas clamped to the resample's supported band (each
+        delta read back to the host: a wait for the device)."""
         hx = self.col_halo - 2.0
         hy = self.prestt_row_bound - 2.0
-        return (min(max(float(raw_dx), -hx), hx),
-                min(max(float(raw_dy), -hy), hy))
+        return (min(max(float(to_host(raw_dx)), -hx), hx),
+                min(max(float(to_host(raw_dy)), -hy), hy))
 
     def transform(self, pan1, pan2, mss, cx, cy, raw_dx, raw_dy):
         """-> (aligned (L/4, W/4, 4), stitched (L, 2*(W - fold))[, prestt
         (L, W)]) uint16."""
-        mss_c = rrc_apply(mss, self.mss_k, self.mss_b)
-        aligned = remap_bands_interleaved(
-            mss_c, cx, cy, row_bound=self.row_bound,
-            col_block=self.col_block, col_halo=self.col_halo,
-        )
-        del mss_c
-        dxs, dys = self.clamp_stt(raw_dx, raw_dy)
-        out = remap_const_stitch_chunked(
-            pan1, pan2, self.pan1_k, self.pan1_b, self.pan2_k, self.pan2_b,
-            dxs, dys, self.fold, row_bound=self.prestt_row_bound,
-            col_block=self.col_block, col_halo=self.col_halo,
-            want_prestt=self.return_prestt,
-        )
+        with span("oip.transform", pan1.device):
+            mss_c = rrc_apply(mss, self.mss_k, self.mss_b)
+            aligned = remap_bands_interleaved(
+                mss_c, cx, cy, row_bound=self.row_bound,
+                col_block=self.col_block, col_halo=self.col_halo,
+            )
+            del mss_c
+            dxs, dys = self.clamp_stt(raw_dx, raw_dy)
+            out = remap_const_stitch_chunked(
+                pan1, pan2, self.pan1_k, self.pan1_b, self.pan2_k,
+                self.pan2_b, dxs, dys, self.fold,
+                row_bound=self.prestt_row_bound, col_block=self.col_block,
+                col_halo=self.col_halo, want_prestt=self.return_prestt,
+            )
         if self.return_prestt:
             return aligned, out[0], out[1]
         return aligned, out
@@ -471,11 +482,12 @@ class ScenePipeline(nn.Module):
         """Estimate then transform: -> (aligned, stitched[, prestt],
         n_valid, n_stt, params) with params = (cx, cy, stt_dx, stt_dy,
         raw_dx, raw_dy), stt_dx/dy the clamped values the resample used."""
-        cx, cy, n_valid, raw_dx, raw_dy, n_stt = self.estimate(
-            pan1, pan2, mss
-        )
-        outs = self.transform(pan1, pan2, mss, cx, cy, raw_dx, raw_dy)
-        dxs, dys = self.clamp_stt(raw_dx, raw_dy)
+        with span(SCENE_SPAN, pan1.device):
+            cx, cy, n_valid, raw_dx, raw_dy, n_stt = self.estimate(
+                pan1, pan2, mss
+            )
+            outs = self.transform(pan1, pan2, mss, cx, cy, raw_dx, raw_dy)
+            dxs, dys = self.clamp_stt(raw_dx, raw_dy)
         return (*outs, n_valid, n_stt, (cx, cy, dxs, dys, raw_dx, raw_dy))
 
 

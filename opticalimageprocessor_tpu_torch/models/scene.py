@@ -36,7 +36,7 @@ from ..formats.naming import build_output_file_path
 from ..formats.rrc_csv import load_rrc_params
 from ..io import raw as raw_io
 from ..parallel.mesh import LINE_AXIS, LineMesh, LineSharded, resolve_mesh
-from ..utils.logging import device_profile, logw, olog, stage
+from ..utils.logging import device_profile, logw, olog, stage, to_host
 
 from .device_pipeline import (
     ScenePipeline,
@@ -116,7 +116,7 @@ def log_scene_params(params, n_valid, n_stt: int) -> None:
     cx, cy, stt_dx, stt_dy, raw_dx, raw_dy = params
     log_band_coeffs(cx, cy, n_valid)
     stt_dx, stt_dy = float(stt_dx), float(stt_dy)
-    raw_dx, raw_dy = float(raw_dx), float(raw_dy)
+    raw_dx, raw_dy = float(to_host(raw_dx)), float(to_host(raw_dy))
     olog(
         "Total %d valid delta value pairs found, everage value: "
         "dx: %.5f, dy: %.5f",
@@ -272,13 +272,13 @@ def _run_scene(
     with stage("scene_estimate", p1.nbytes + ms.nbytes):
         cx, cy, n_valid, raw_dx, raw_dy, n_stt = scene.estimate(
             pan1, pan2, mss)
-        n_valid = n_valid.cpu().numpy()
-        n_stt = int(n_stt)
+        n_valid = to_host(n_valid).numpy()
+        n_stt = int(to_host(n_stt))
     check_registration_valid(n_valid)
     check_stt_valid(n_stt)
     dxs, dys = scene.pipe.clamp_stt(raw_dx, raw_dy)
     log_scene_params(
-        (cx.cpu().numpy(), cy.cpu().numpy(), dxs, dys, raw_dx, raw_dy),
+        (to_host(cx).numpy(), to_host(cy).numpy(), dxs, dys, raw_dx, raw_dy),
         n_valid, n_stt,
     )
     with stage("scene_transform", p1.nbytes * 2 + ms.nbytes):
@@ -322,10 +322,10 @@ def _run_scene(
         mss2 = load_bands_sharded(ms2)
     with stage("scene_align_mss2", ms2.nbytes):
         aligned2, n_valid2, (cx2, cy2) = align(prestt[0], mss2)
-        n_valid2 = n_valid2.cpu().numpy()
+        n_valid2 = to_host(n_valid2).numpy()
     del mss2, prestt
     check_registration_valid(n_valid2)
-    log_band_coeffs(cx2.cpu().numpy(), cy2.cpu().numpy(), n_valid2)
+    log_band_coeffs(to_host(cx2).numpy(), to_host(cy2).numpy(), n_valid2)
 
     aligned2_path = build_output_file_path(
         mss2_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir

@@ -61,7 +61,7 @@ from ..io import tiff as tiff_io
 from ..io.raw import RawStrip
 from ..io.streaming import HostDeviceCopies, window
 from ..parallel.mesh import LINE_AXIS, LineMesh, resolve_mesh
-from ..utils.logging import device_profile, olog, stage
+from ..utils.logging import device_profile, olog, stage, to_host
 from .device_pipeline import (
     MssAlign,
     ScenePipeline,
@@ -247,7 +247,7 @@ def transform_streamed(pipe: ScenePipeline, p1: RawStrip, p2: RawStrip,
     sections in turn.  Returns the number of sections."""
     _check_section_rows(section_rows)
     # host floats once, not a device readback a section
-    raw_dx, raw_dy = float(raw_dx), float(raw_dy)
+    raw_dx, raw_dy = float(to_host(raw_dx)), float(to_host(raw_dy))
     halo_p = pipe.prestt_row_bound + 2
     halo_b = pipe.row_bound + 2
     lanes = _Lanes(pipe, device)
@@ -390,13 +390,13 @@ def _run_scene_streamed(
     with stage("stream_estimate", 0):
         cx, cy, n_valid, raw_dx, raw_dy, n_stt = estimate_streamed(
             pipe, p1, p2, ms, dev)
-        n_valid = n_valid.cpu().numpy()
-        n_stt = int(n_stt)
+        n_valid = to_host(n_valid).numpy()
+        n_stt = int(to_host(n_stt))
     check_registration_valid(n_valid)
     check_stt_valid(n_stt)
     dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
     log_scene_params(
-        (cx.cpu().numpy(), cy.cpu().numpy(), dxs, dys, raw_dx, raw_dy),
+        (to_host(cx).numpy(), to_host(cy).numpy(), dxs, dys, raw_dx, raw_dy),
         n_valid, n_stt,
     )
 
@@ -449,9 +449,9 @@ def _run_scene_streamed(
     with stage("stream_estimate_mss2", 0):
         cx2, cy2, n_valid2 = estimate_mss2_streamed(
             align, raw_io.RawStrip(prestt_path, pixels_per_line), ms2, dev)
-        n_valid2 = n_valid2.cpu().numpy()
+        n_valid2 = to_host(n_valid2).numpy()
     check_registration_valid(n_valid2)
-    log_band_coeffs(cx2.cpu().numpy(), cy2.cpu().numpy(), n_valid2)
+    log_band_coeffs(to_host(cx2).numpy(), to_host(cy2).numpy(), n_valid2)
 
     aligned2_path = build_output_file_path(
         mss2_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir

@@ -51,6 +51,7 @@ from ..models.device_pipeline import (
     stt_peaks,
 )
 from ..ops.rrc import rrc_apply
+from ..utils.logging import to_host
 from .distributed import all_gather_list
 from .halo import clipped_halo
 from .mesh import LineMesh, LineSharded
@@ -202,7 +203,7 @@ class ShardedScene:
         (L, W)]) line-sharded on axis 0."""
         pan1, pan2, mss = self._shard(pan1, pan2, mss)
         p = self.pipe
-        raw_dx, raw_dy = float(raw_dx), float(raw_dy)
+        raw_dx, raw_dy = float(to_host(raw_dx)), float(to_host(raw_dy))
         halo_p = p.prestt_row_bound + 2
         halo_b = p.row_bound + 2
         n_out = 3 if p.return_prestt else 2

@@ -6,11 +6,13 @@ environment variable, default ``oip.log``), timestamped lines, and a
 :func:`stage_report`.
 
 Copied from ``opticalimageprocessor_tpu/utils/logging.py``, with
-torch.profiler in place of the JAX profiler: each stage is a
-``record_function`` span, and :func:`device_profile` writes a
-torch.profiler trace.  The logger keeps the reference package's name,
-``oiptpu``, so both packages in one process share one file handler and
-write the same lines.
+torch.profiler in place of the JAX profiler: :func:`device_profile` writes
+a torch.profiler trace, and while a profiler records, every stage and
+every :func:`span` of the scene path is a ``record_function`` range timed
+on the device and kept for :func:`span_report`, beside the counters of
+:func:`count`.  With no profiler recording a span is one flag check.  The
+logger keeps the reference package's name, ``oiptpu``, so both packages in
+one process share one file handler and write the same lines.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import contextlib
 import logging
 import os
 import sys
+import threading
 import time
 from dataclasses import dataclass
 
@@ -90,11 +93,11 @@ _STAGES: dict[str, _StageStats] = {}
 def stage(name: str, nbytes: int = 0, log: bool = True):
     """Time a pipeline stage and log ``<bytes> in <secs> (<MBps>)``, the
     reference's ``stop_watch::rst()/tik()`` + MB/s OLOG pattern (e.g.
-    imageop.h:116-125).  Every stage is also a :func:`trace_annotation`
-    span, so a profiler trace shows the pipeline's stages."""
+    imageop.h:116-125).  Every stage is also a :func:`span`, so a
+    profiler trace shows the pipeline's stages."""
     t0 = time.perf_counter()
     try:
-        with trace_annotation(name):
+        with span(name):
             yield
     finally:
         es = time.perf_counter() - t0
@@ -132,31 +135,172 @@ def reset_stage_report() -> None:
     _STAGES.clear()
 
 
-@contextlib.contextmanager
-def trace_annotation(name: str):
-    """A ``torch.profiler.record_function`` span named ``name``; nothing
-    where torch is not imported (no profiler can be recording there: the
-    host-only ``auxsep`` never loads torch).
+# ---- spans and counters (on only while a torch profiler records)
 
-    Only the annotation's setup and teardown are guarded: exceptions raised
-    by the annotated body propagate untouched (a guard spanning the yield
-    would catch them and yield again, turning every stage error into
-    contextlib's "generator didn't stop after throw()")."""
+SCENE_SPAN = "oip.scene"
+
+
+@dataclass
+class _Record:
+    """A closed span (host start and end; ``events`` its CUDA event pair,
+    None on the host clock) or, with ``counter``, a counter's increment
+    ``n``."""
+
+    name: str
+    parent: str | None
+    scene: int
+    t0_ns: int = 0
+    t1_ns: int = 0
+    events: tuple | None = None
+    n: int = 0
+    counter: bool = False
+
+
+_RECORDS: list[_Record] = []
+_OPEN = threading.local()      # .names: the thread's open spans
+_SCENES = [0]                  # oip.scene spans opened since the reset
+
+
+def tracing() -> bool:
+    """Whether a torch profiler is recording (never where torch is not
+    imported: the host-only ``auxsep`` never loads it)."""
     torch = sys.modules.get("torch")
-    try:
-        cm = torch.profiler.record_function(name) if torch else None
-        if cm is not None:
-            cm.__enter__()
-    except Exception:  # noqa: BLE001 — the span is best-effort
-        cm = None
-    try:
-        yield
-    finally:
-        if cm is not None:
-            try:
-                cm.__exit__(None, None, None)
-            except Exception:  # noqa: BLE001
-                pass  # profiler teardown must never mask the body's result
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+def _open_names() -> list[str]:
+    names = getattr(_OPEN, "names", None)
+    if names is None:
+        names = _OPEN.names = []
+    return names
+
+
+def _device_stream(device):
+    """The current stream of ``device`` (the current CUDA device when
+    None, if CUDA is in use), or None for the host clock."""
+    torch = sys.modules["torch"]
+    if device is None:
+        if not torch.cuda.is_initialized():
+            return None
+        return torch.cuda.current_stream()
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_stream(device)
+
+
+class span:
+    """A span named ``name`` around the body of a ``with`` block.
+
+    Off (no torch profiler recording) it is one flag check: no
+    ``record_function``, no CUDA event, nothing kept.  On, it is a
+    ``torch.profiler.record_function`` range (in the profiler's trace, on
+    the clock of its kernel events), a CUDA event pair on the current
+    stream of ``device`` (the current CUDA device when None; the host
+    clock for a CPU device or where CUDA is not in use), and a record of
+    its name, its parent span, its scene (the count of :data:`SCENE_SPAN`
+    spans) and its host start and end, read by :func:`span_report`.
+
+    A body's exception propagates as itself; the span is closed and
+    recorded all the same."""
+
+    __slots__ = ("name", "device", "_on", "_rf", "_rec", "_stream")
+
+    def __init__(self, name: str, device=None):
+        self.name = name
+        self.device = device
+        self._on = False
+
+    def __enter__(self):
+        if not tracing():
+            return self
+        torch = sys.modules["torch"]
+        self._on = True
+        names = _open_names()
+        if self.name == SCENE_SPAN:
+            _SCENES[0] += 1
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self._stream = _device_stream(self.device)
+        start = None
+        if self._stream is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._stream)
+        self._rec = _Record(self.name, names[-1] if names else None,
+                            _SCENES[0], time.perf_counter_ns(),
+                            events=start)
+        names.append(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if not self._on:
+            return False
+        self._on = False
+        rec = self._rec
+        if self._stream is not None:
+            torch = sys.modules["torch"]
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._stream)
+            rec.events = (rec.events, end)
+        rec.t1_ns = time.perf_counter_ns()
+        _open_names().pop()
+        _RECORDS.append(rec)
+        try:
+            self._rf.__exit__(None, None, None)
+        except Exception:  # noqa: BLE001
+            pass  # profiler teardown must never mask the body's result
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while a profiler records (nothing
+    otherwise); :func:`span_report` sums it."""
+    if tracing():
+        names = _open_names()
+        _RECORDS.append(_Record(name, names[-1] if names else None,
+                                _SCENES[0], n=n, counter=True))
+
+
+def to_host(x):
+    """``x`` read back to the host, counted as one ``host_syncs`` (from a
+    device, the read waits for the work queued before it): a 0-d tensor's
+    number (``item()``, what ``float()`` reads), another tensor's CPU
+    copy; anything else as it is.  Every blocking read of the scene path
+    goes through here."""
+    torch = sys.modules.get("torch")
+    if torch is None or not isinstance(x, torch.Tensor):
+        return x
+    count("host_syncs")
+    return x.item() if x.dim() == 0 else x.cpu()
+
+
+def span_report() -> dict[str, dict]:
+    """The spans and counters recorded since :func:`reset_span_report`,
+    per name: ``calls``, ``parent`` (the first record's), and for a span
+    ``device_ms`` (its CUDA event pairs' total; the host clock's where it
+    ran on the host) and ``host_ms``, for a counter ``count`` (the sum of
+    its increments).  Waits for each span's end event."""
+    out: dict[str, dict] = {}
+    for r in _RECORDS:
+        e = out.setdefault(r.name, {"calls": 0, "parent": r.parent})
+        e["calls"] += 1
+        if r.counter:
+            e["count"] = e.get("count", 0) + r.n
+            continue
+        host = (r.t1_ns - r.t0_ns) / 1e6
+        if r.events is None:
+            dev = host
+        else:
+            r.events[1].synchronize()
+            dev = r.events[0].elapsed_time(r.events[1])
+        e["device_ms"] = e.get("device_ms", 0.0) + dev
+        e["host_ms"] = e.get("host_ms", 0.0) + host
+    return out
+
+
+def reset_span_report() -> None:
+    _RECORDS.clear()
+    _SCENES[0] = 0
 
 
 def device_profile(trace_dir: str, device="cuda"):

@@ -1,0 +1,245 @@
+"""The port's spans and counters (utils/logging.span, count, to_host,
+span_report) on a small scene forward, and the kernel library's load
+record (_build.load_s): on only while a torch profiler records, nested
+scene > estimate > registration steps / stt, the same outputs either
+way."""
+
+import json
+import logging
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from opticalimageprocessor_tpu_torch import _build, cli
+from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
+from opticalimageprocessor_tpu_torch.ops.resample import upsample4_f32
+from opticalimageprocessor_tpu_torch.utils import logging as tlog
+
+torch.set_num_threads(2)
+
+LINES, WIDTH = 1024, 1024
+FORWARDS = 2
+REGISTER = ("oip.register.tiles", "oip.register.spectra",
+            "oip.register.correlate", "oip.register.fit")
+SPANS = ("oip.scene", "oip.estimate", *REGISTER, "oip.stt",
+         "oip.transform")
+PARENT = {"oip.scene": None, "oip.estimate": "oip.scene",
+          **{n: "oip.estimate" for n in REGISTER},
+          "oip.stt": "oip.estimate", "oip.transform": "oip.scene"}
+
+
+def _pipeline():
+    """A 1024 x 1024 scene as tests/test_torch_device_pipeline.py builds
+    one (PAN = x4 upsample of noise, PAN2 rolled by (+2, -3), the bands
+    rolled), and its pipeline."""
+    rng = np.random.default_rng(7)
+    scene = rng.integers(2000, 42000, (LINES // 4, WIDTH // 4)).astype(
+        np.float32)
+    up = upsample4_f32(torch.from_numpy(scene)).round().clamp(0, 65535)
+    up = up.numpy().astype(np.uint16)
+    pan2 = np.roll(np.roll(up, 2, 0), 200 - 3 - WIDTH, 1)
+    mss = np.stack([np.roll(scene, (b % 2, b - 1), (0, 1))
+                    for b in range(4)]).astype(np.uint16)
+    params = [(0.98 + 0.04 * rng.random(WIDTH), rng.normal(0, 20, WIDTH))
+              for _ in range(2)]
+    mparams = (0.98 + 0.04 * rng.random((4, WIDTH // 4)),
+               rng.normal(0, 20, (4, WIDTH // 4)))
+    pipe = dp.ScenePipeline(*params, mparams, slices=8, fold=100,
+                            stt_sections=4, overlap_cols=200)
+    args = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (up, pan2, mss)]
+    return pipe, args
+
+
+def _flat(out):
+    """A forward's outputs as a flat list of tensors and floats."""
+    aligned, stitched, n_valid, n_stt, params = out
+    return [aligned, stitched, n_valid, n_stt, *params]
+
+
+def _same(a, b):
+    for x, y in zip(_flat(a), _flat(b), strict=True):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.fixture(scope="module")
+def traced(tmp_path_factory):
+    """FORWARDS forwards under a CPU profiler: -> (pipe, args, outputs,
+    span_report(), the exported trace's user annotations)."""
+    pipe, args = _pipeline()
+    tlog.reset_span_report()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = [pipe(*args) for _ in range(FORWARDS)]
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    path = tmp_path_factory.mktemp("spans") / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e["name"].startswith("oip.")]
+    return pipe, args, outs, report, events
+
+
+def _inside(inner, outer):
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_traced_forward_exports_every_span_nested_once_a_forward(traced):
+    _pipe, _args, _outs, _report, events = traced
+    by_name = {n: [e for e in events if e["name"] == n] for n in SPANS}
+    for name in SPANS:
+        assert len(by_name[name]) == FORWARDS, (name, len(by_name[name]))
+    for name, parent in PARENT.items():
+        if parent is None:
+            continue
+        for e in by_name[name]:
+            assert sum(_inside(e, p) for p in by_name[parent]) == 1, name
+    assert {e["name"] for e in events} == set(SPANS)
+
+
+def test_span_report_counts_the_forwards(traced):
+    _pipe, _args, _outs, report, _events = traced
+    for name in SPANS:
+        assert report[name]["calls"] == FORWARDS, name
+        assert report[name]["parent"] == PARENT[name], name
+        assert report[name]["device_ms"] > 0.0
+        # on the CPU the device ms are the host clock's
+        assert report[name]["device_ms"] == report[name]["host_ms"]
+    est = report["oip.estimate"]["host_ms"]
+    assert sum(report[n]["host_ms"] for n in (*REGISTER, "oip.stt")) <= est
+
+
+def test_host_syncs_count_four_a_forward(traced):
+    _pipe, _args, _outs, report, _events = traced
+    assert report["host_syncs"] == {"calls": 4 * FORWARDS,
+                                    "parent": "oip.transform",
+                                    "count": 4 * FORWARDS}
+
+
+def test_outputs_identical_with_tracing_on_and_off(traced):
+    pipe, args, outs, _report, _events = traced
+    assert not tlog.tracing()
+    off = pipe(*args)
+    for on in outs:
+        _same(on, off)
+
+
+def test_untraced_spans_call_no_record_function(monkeypatch):
+    """With no profiler recording, a span is a flag check: no
+    record_function, no CUDA event, nothing in the table."""
+    def refuse(*_a, **_k):
+        raise AssertionError("called with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    tlog.reset_span_report()
+    pipe, args = _pipeline()
+    pipe(*args)
+    with tlog.stage("unit_test_untraced_stage"):
+        tlog.count("unit_test_counter")
+    assert tlog._RECORDS == []
+    assert tlog.span_report() == {}
+
+
+def test_traced_span_lets_the_body_error_through():
+    tlog.reset_span_report()
+    with pytest.raises(ValueError, match="the real error"):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with tlog.span("oip.scene"):
+                with tlog.span("unit_test_inner"):
+                    raise ValueError("the real error")
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    assert report["unit_test_inner"]["parent"] == "oip.scene"
+    assert report["oip.scene"]["calls"] == 1
+    assert tlog._open_names() == []
+
+
+def test_to_host_counts_only_tensors():
+    tlog.reset_span_report()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tlog.to_host(2.5) == 2.5
+        arr = np.arange(3)
+        assert tlog.to_host(arr) is arr
+        t = tlog.to_host(torch.tensor([1, 2]))
+        v = tlog.to_host(torch.tensor(2.5))
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    assert isinstance(t, torch.Tensor) and t.tolist() == [1, 2]
+    assert v == 2.5 and isinstance(v, float)
+    assert report == {"host_syncs": {"calls": 2, "parent": None,
+                                     "count": 2}}
+
+
+def test_cli_stage_report_logs_the_span_report(caplog):
+    tlog.reset_span_report()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            with tlog.span("unit_test_cli_span"):
+                tlog.count("unit_test_cli_counter", 2)
+    with caplog.at_level(logging.DEBUG, logger="oiptpu"):
+        cli._print_stage_report()
+    tlog.reset_span_report()
+    lines = [r.getMessage() for r in caplog.records]
+    assert "==== span report ====" in lines
+    span_line = next(x for x in lines if x.startswith("unit_test_cli_span"))
+    assert "device ms a call" in span_line and "(3 calls)" in span_line
+    count_line = next(x for x in lines
+                      if x.startswith("unit_test_cli_counter"))
+    assert count_line.split()[1] == "6"
+
+
+class _FakeLib:
+    def __init__(self, path):
+        self.path = path
+        for name in _build._SIGNATURES:
+            setattr(self, name, types.SimpleNamespace())
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["built", "cached"])
+def test_build_load_is_recorded(tmp_path, monkeypatch, cached):
+    """library()'s first call records its seconds and whether it built,
+    with nvcc and the dlopen faked."""
+    so = tmp_path / "liboiptorch_test.so"
+    if cached:
+        so.write_bytes(b"")
+    calls = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, argv, **_kw):
+            calls.append(argv)
+
+        def communicate(self):
+            return ("", None)
+
+    def run(argv, **_kw):
+        calls.append(argv)
+        open(argv[argv.index("-o") + 1], "wb").close()
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_library_path", lambda: so)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "subprocess", types.SimpleNamespace(
+        Popen=Proc, run=run, PIPE=-1, STDOUT=-2))
+    monkeypatch.setattr(_build.ctypes, "CDLL", _FakeLib)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "load_s", None)
+    monkeypatch.setattr(_build, "built", None)
+    lib = _build.library()
+    assert lib.path == str(so) and so.exists()
+    assert _build.built is (not cached)
+    assert bool(calls) is (not cached)
+    first = _build.load_s
+    assert isinstance(first, float) and first >= 0.0
+    assert _build.library() is lib and _build.load_s == first
