@@ -413,9 +413,29 @@ def phase_kernels(dev, records):
     del fpan, fband, pan, bands
     torch.cuda.empty_cache()
     say(f"[b] {records['crosspower']}")
-    # the scene's shape: 20 tiles (2 sections x 10 slices of a 32768-line
-    # scene) x 4 bands, kernel only
-    tiles = 20
+    # a shape that the kernel's schedule splits unevenly: 5 tiles of 1001
+    # band rows (no multiple of a work item's 8, so its last block of band
+    # rows holds 1; M 4004, no multiple of an item's 32 ky rows), keep 615
+    # (no multiple of the 8-kx step)
+    mr, tr = 1001, 5
+    base = torch.from_numpy(
+        rng.integers(2000, 42000, (tr, mr, n), dtype=np.int32)).to(dev)
+    bands = torch.stack(
+        [torch.roll(base, (b % 2, b - 1), (1, 2)) for b in range(4)], dim=1)
+    fpan = phasecorr.rfft2_padded(resample.upsample4_f32(base), (4 * mr, N))
+    fband = phasecorr.band_full_spectrum_small(bands)
+    del base, bands
+    ragged = crosspower_vs_plain(
+        "[b] crosspower ragged", (fpan, fband,
+                                  phasecorr.filter_response(mr, 4, dev), hc,
+                                  ex_c, ex_s), packed, 4 * mr, N, win, win)
+    records["crosspower"].update(ragged_max_abs_err=ragged[0],
+                                 ragged_surface_rel_err=ragged[2])
+    del fpan, fband
+    torch.cuda.empty_cache()
+    # the 160000-line scene's shape: 50 tiles (5 registration sections x
+    # 10 slices) x 4 bands, kernel only
+    tiles = 50
     base = torch.from_numpy(
         rng.integers(2000, 42000, (tiles, m, n), dtype=np.int32)).to(dev)
     bands = torch.stack(
@@ -426,7 +446,7 @@ def phase_kernels(dev, records):
     kargs = (fpan, fband, hr, hc, ex_c, ex_s)
     scene = dict(
         ms=time_ms(lambda: pcc._crosspower_cuda(*kargs, packed), 5),
-        shape="T=20 tiles x 4 bands, M=16000 keep=615 m=4000 n=307 win=64",
+        shape="T=50 tiles x 4 bands, M=16000 keep=615 m=4000 n=307 win=64",
         **crosspower_bound(tiles, 4, M, keep, m, n, wx))
     del fpan, fband
     torch.cuda.empty_cache()
@@ -436,7 +456,7 @@ def phase_kernels(dev, records):
     # yardstick for the product alone: cuBLAS's bf16 GEMM of the real-ified
     # operands, (T*4*M, 2*624) x (2*624, 272), no whitening, at both shapes
     # (the port never calls it)
-    kp2 = 2 * pcc.KX_CHUNK * (-(-keep // pcc.KX_CHUNK))
+    kp2 = 2 * pcc.KX_STEP * (-(-keep // pcc.KX_STEP))
     gemm = {}
     for t in (2, tiles):
         a = torch.randn((t * 4 * M, kp2), device=dev).to(torch.bfloat16)
@@ -951,13 +971,19 @@ def phase_pipeline(dev, lines: int = 32768):
         check_stt_valid,
     )
 
+    from opticalimageprocessor_tpu_torch import _build
+
     rng = np.random.default_rng(SEED + 2)
     pan1, pan2, mss = synth_scene(torch, rng, lines, dev)
     pipe = ScenePipeline(
         rand_params(rng, W), rand_params(rng, W), rand_params(rng, 4, BW),
         fold=FOLD_COLS // 2, overlap_cols=FOLD_COLS,
     ).to(dev)
+    _build.reset_launch_counts()
     cx, cy, n_valid, raw_dx, raw_dy, n_stt = pipe.estimate(pan1, pan2, mss)
+    check(_build.LAUNCHES["crosspower"] == 1,
+          f"a scene's estimate took {_build.LAUNCHES['crosspower']} kernel-(b) "
+          "launches, not 1")
     check_registration_valid(n_valid.cpu())
     check_stt_valid(n_stt)
     say(f"[pipe] n_valid {n_valid.tolist()} n_stt {int(n_stt)} "

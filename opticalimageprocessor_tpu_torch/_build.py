@@ -55,7 +55,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "oip_rrc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
     "oip_crosspower": [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _P,
     ],
     "oip_remap_bands": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     "oip_stitch_tail": [

@@ -25,10 +25,15 @@ from .phasecorr import (
     filter_response,
 )
 
-# the kernel's tiling (csrc/crosspower.cu): kx in chunks of KX_CHUNK
-# complex columns (2*KX_CHUNK real K), window columns padded to N_PAD
-KX_CHUNK = 16
+# the kernel's tiling (csrc/crosspower.cu): a k16 step of the wgmma is
+# KX_STEP complex columns (2*KX_STEP real K), window columns are padded to
+# N_PAD; a work item is ITEM_REPS repeats (ky = rep*m + row) of
+# ITEM_ROWS band rows, of ITEM_BANDS bands of one tile
+KX_STEP = 8
 N_PAD = 136
+ITEM_ROWS = 8
+ITEM_REPS = 4
+ITEM_BANDS = 4
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -86,38 +91,77 @@ def _crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s):
 
 
 def pack_eval_operands(ex_c: torch.Tensor, ex_s: torch.Tensor) -> torch.Tensor:
-    """The kernel's B operand: ``[[Ec, Es], [-Es, Ec]]`` in bfloat16, laid
-    out as the wgmma descriptors of csrc/crosspower.cu read it.
+    """The kernel's B operand: ``[Ec ; Es]`` in bfloat16, interleaved by kx
+    and laid out as the wgmma descriptors of csrc/crosspower.cu read it.
+    Both products read it: ``D_re = [Cr, -Ci] @ B``, ``D_im = [Ci, Cr] @
+    B``.
 
-    Shape (chunks, 2, 2*KX_CHUNK/8, N_PAD, 8), chunks = ceil(keep /
-    KX_CHUNK): for chunk c, part p (0: the real output, 1: the imaginary
-    one), real K index q = 8*j + e (q < KX_CHUNK: the Cr rows of kx = c*
-    KX_CHUNK + q; q >= KX_CHUNK: the Ci rows of kx = c*KX_CHUNK + q -
-    KX_CHUNK) and window column w, element [c, p, j, w, e] is
+    Shape (steps, 2, N_PAD, 8), steps = ceil(keep / KX_STEP): for k16 step
+    s, K half h, window column w and element e, element [s, h, w, e] is
+    real K row k = 8*h + e of the step, which holds
 
-        p = 0: Ec[kx, w] (Cr rows), -Es[kx, w] (Ci rows)
-        p = 1: Es[kx, w] (Cr rows),  Ec[kx, w] (Ci rows)
+        Ec[kx, w] for even e, Es[kx, w] for odd e,  kx = KX_STEP*s + 2*(e//2) + h
 
-    and 0 for kx >= keep or w >= wx.  Each (c, p, j) slab is K-major
-    core matrices of 8 columns x 16 bytes, so one chunk is one contiguous
-    copy into shared memory."""
+    (K slot j = k//2 holds kx 2j for j < 4 and 2(j - 4) + 1 after: a
+    thread's two kx of a step are adjacent), and 0 for kx >= keep or w >=
+    wx.  Each (s, h) slab is K-major core matrices of 8 columns x 16 bytes,
+    and consecutive steps are contiguous, so a stage of steps is one copy
+    into shared memory."""
     keep, wx = ex_c.shape
     if wx > N_PAD:
         raise ValueError(f"crosspower: {wx} window columns above {N_PAD}")
-    chunks = -(-keep // KX_CHUNK)
-    kp = chunks * KX_CHUNK
-    dev = ex_c.device
-    ec = torch.zeros((kp, N_PAD), dtype=torch.bfloat16, device=dev)
-    es = torch.zeros_like(ec)
-    ec[:keep, :wx] = ex_c.to(torch.bfloat16)
-    es[:keep, :wx] = ex_s.to(torch.bfloat16)
-    ec = ec.reshape(chunks, KX_CHUNK, N_PAD)
-    es = es.reshape(chunks, KX_CHUNK, N_PAD)
-    b_re = torch.cat([ec, -es], dim=1)         # (chunks, 2*KX_CHUNK, N_PAD)
-    b_im = torch.cat([es, ec], dim=1)
-    b = torch.stack([b_re, b_im], dim=1)       # (chunks, 2, 2*KX_CHUNK, N)
-    b = b.reshape(chunks, 2, 2 * KX_CHUNK // 8, 8, N_PAD)
-    return b.permute(0, 1, 2, 4, 3).contiguous()
+    steps = -(-keep // KX_STEP)
+    kp = steps * KX_STEP
+    ecs = torch.zeros((kp, N_PAD, 2), dtype=torch.bfloat16,
+                      device=ex_c.device)
+    ecs[:keep, :wx, 0] = ex_c.to(torch.bfloat16)
+    ecs[:keep, :wx, 1] = ex_s.to(torch.bfloat16)
+    # kx = 8 s + 2 i + h -> [s, h, w, (i, Ec|Es)]
+    ecs = ecs.reshape(steps, KX_STEP // 2, 2, N_PAD, 2)
+    return ecs.permute(0, 2, 3, 1, 4).reshape(steps, 2, N_PAD, 8).contiguous()
+
+
+def crosspower_schedule(tiles: int, n_bands: int, M: int, m: int,
+                        sms: int) -> tuple[int, int, int, int]:
+    """Kernel (b)'s persistent launch: (grid, items, rep_groups,
+    row_blocks).
+
+    A tile's ky rows are ``reps`` = ceil(M / m) repeats of the m band rows
+    (ky = rep*m + row), and row ky reads band row ky mod m.  A work item
+    takes ITEM_ROWS band rows (``row_blocks`` blocks, the last ragged
+    where m is no multiple of it) of ITEM_REPS repeats (``rep_groups``
+    groups) of ITEM_BANDS bands, so each band row it loads serves four ky
+    rows.  ``grid`` blocks (one an SM, at most one an item) take items
+    ``b, b + grid, ...`` (:func:`crosspower_item`)."""
+    reps = -(-M // m)
+    rep_groups = -(-reps // ITEM_REPS)
+    row_blocks = -(-min(m, M) // ITEM_ROWS)
+    quads = -(-n_bands // ITEM_BANDS)
+    items = tiles * quads * rep_groups * row_blocks
+    return max(1, min(items, sms)), items, rep_groups, row_blocks
+
+
+def crosspower_item(i: int, n_bands: int, M: int, m: int, rep_groups: int,
+                    row_blocks: int) -> tuple[int, int, list[int]]:
+    """Item ``i`` as the kernel decodes it: (tile, first band, its ky
+    rows).  Its bands are first .. first + ITEM_BANDS - 1 (those below
+    n_bands); a consumer warp takes one repeat's ITEM_ROWS contiguous ky
+    rows, those with a band row below m and a ky below M."""
+    row0 = ITEM_ROWS * (i % row_blocks)
+    i //= row_blocks
+    rep0 = ITEM_REPS * (i % rep_groups)
+    i //= rep_groups
+    quads = -(-n_bands // ITEM_BANDS)
+    rows = []
+    for rep in range(rep0, rep0 + ITEM_REPS):
+        ky = min(rep * m, M) + row0
+        rows += range(ky, ky + min(ITEM_ROWS, m - row0, M - ky))
+    return i // quads, (i % quads) * ITEM_BANDS, rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=16)
@@ -149,8 +193,8 @@ def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
             raise ValueError("crosspower: spectra must be complex64")
     if ex_c.dtype != torch.float32 or ex_s.dtype != torch.float32:
         raise ValueError("crosspower: evaluation matrices must be float32")
-    chunks = -(-keep // KX_CHUNK)
-    if (packed.shape != (chunks, 2, 2 * KX_CHUNK // 8, N_PAD, 8)
+    steps = -(-keep // KX_STEP)
+    if (packed.shape != (steps, 2, N_PAD, 8)
             or packed.dtype != torch.bfloat16 or packed.device != fpan.device
             or not packed.is_contiguous()):
         raise ValueError("crosspower: packed B is not pack_eval_operands' "
@@ -160,11 +204,13 @@ def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
     out_re = torch.empty((tiles, n_bands, M, wx), dtype=torch.float32,
                          device=fpan.device)
     out_im = torch.empty_like(out_re)
+    grid, items, rep_groups, row_blocks = crosspower_schedule(
+        tiles, n_bands, M, m, _sm_count(fpan.device))
     _build.launch(
         "crosspower", "oip_crosspower", fpan.data_ptr(), fband.data_ptr(),
         hr.data_ptr(), hc.data_ptr(), packed.data_ptr(), out_re.data_ptr(),
-        out_im.data_ptr(), tiles, n_bands, M, keep, m, n, wx,
-        _build.stream_of(fpan), device=fpan.device,
+        out_im.data_ptr(), tiles, n_bands, M, keep, m, n, wx, grid, items,
+        rep_groups, row_blocks, _build.stream_of(fpan), device=fpan.device,
     )
     return out_re, out_im
 

@@ -217,7 +217,7 @@ def test_kernel_wrappers_reject_mismatched_shapes(which):
                 _meta((2, 64, 9), c64), _meta((1, 4, 16, 4), c64),
                 _meta((64,), c64), _meta((9,), c64),
                 _meta((9, 9), torch.float32), _meta((9, 9), torch.float32),
-                _meta((1, 2, 4, 136, 8), torch.bfloat16),
+                _meta((2, 2, 136, 8), torch.bfloat16),
             )
         elif which == "remap_band":
             resample._remap_band_cuda(

@@ -105,25 +105,27 @@ def test_crosspower_plain_matches_jax_unfused(rng):
         assert abs(float(got[1][0, b]) - (-4 + 4 * (b % 2))) < 0.1
 
 
-def _unpack_rows(packed, keep, wx):
-    """The dense (2*Kp, N_PAD) B_re and B_im that the kernel's wgmma
-    descriptors read from ``packed``, in the kernel's K order (chunk by
-    chunk: KX_CHUNK Cr rows, then KX_CHUNK Ci rows)."""
-    chunks, parts, slabs, n_pad, eight = packed.shape
-    assert (parts, slabs, n_pad, eight) == (2, 2 * pcc.KX_CHUNK // 8,
-                                            pcc.N_PAD, 8)
-    # element (q = 8 j + e, n) of chunk c, part p sits at [c, p, j, n, e]
-    dense = packed.permute(1, 0, 2, 4, 3).reshape(2, chunks * 2 *
-                                                  pcc.KX_CHUNK, pcc.N_PAD)
-    return dense[0].to(torch.float32), dense[1].to(torch.float32)
+def _unpack_rows(packed):
+    """The dense (2*Kp, N_PAD) B that the kernel's wgmma descriptors read
+    from ``packed``, in the kernel's K order (k16 step by step), and the kx
+    and part (0: Ec, 1: Es) of each K row."""
+    steps, halves, n_pad, eight = packed.shape
+    assert (halves, n_pad, eight) == (2, pcc.N_PAD, 8)
+    # element (k = 8 h + e, w) of step s sits at [s, h, w, e]
+    dense = packed.permute(0, 1, 3, 2).reshape(steps * 16, pcc.N_PAD)
+    s, h, e = torch.meshgrid(torch.arange(steps), torch.arange(2),
+                             torch.arange(8), indexing="ij")
+    kx = (pcc.KX_STEP * s + 2 * (e // 2) + h).reshape(-1)
+    return dense.to(torch.float32), kx, (e % 2).reshape(-1)
 
 
 @pytest.mark.parametrize("keep,win", [(129, 16), (615, 64), (40, 3)])
 def test_packed_eval_operands_reproduce_the_plain_version(rng, keep, win):
     """The host half of kernel (b)'s layout: the wrapper's packed B (its
-    padding, signs and K order), multiplied in float32 by A = [Cr | Ci]
-    built chunk by chunk in the kernel's order, gives _crosspower_plain's
-    output (same bf16 operands, another order of summation)."""
+    padding, interleaving and K order), multiplied in float32 by A_re =
+    [Cr, -Ci] and A_im = [Ci, Cr] built step by step in the kernel's order,
+    gives _crosspower_plain's output (same bf16 operands, another order of
+    summation)."""
     M, m, n = 64, 16, 7 if keep == 40 else keep // 2 + 1
     n_pad = (keep - 1) * 2
     fpan = torch.from_numpy((rng.standard_normal((1, M, keep))
@@ -143,27 +145,57 @@ def test_packed_eval_operands_reproduce_the_plain_version(rng, keep, win):
     want_re, want_im = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
 
     packed = pcc.pack_eval_operands(ex_c, ex_s)
-    chunks = -(-keep // pcc.KX_CHUNK)
-    assert packed.shape == (chunks, 2, 2 * pcc.KX_CHUNK // 8, pcc.N_PAD, 8)
+    steps = -(-keep // pcc.KX_STEP)
+    assert packed.shape == (steps, 2, pcc.N_PAD, 8)
     assert packed.dtype == torch.bfloat16
-    b_re, b_im = _unpack_rows(packed, keep, wx)
-    kp = chunks * pcc.KX_CHUNK
-    for b in range(2):
+    b, kx, es = _unpack_rows(packed)
+    kp = steps * pcc.KX_STEP
+    # every kx once, the padding's rows of B zero
+    assert sorted(kx[es == 0].tolist()) == list(range(kp))
+    assert bool((b[kx >= keep] == 0).all())
+    for band in range(2):
         cr = torch.zeros((M, kp))
         ci = torch.zeros((M, kp))
-        cr[:, :keep], ci[:, :keep] = pcc.whitened_bf16(fpan[0], fband[0, b],
+        cr[:, :keep], ci[:, :keep] = pcc.whitened_bf16(fpan[0], fband[0, band],
                                                        hr, hc)
-        a = torch.cat([cr.reshape(M, chunks, pcc.KX_CHUNK),
-                       ci.reshape(M, chunks, pcc.KX_CHUNK)], dim=2)
-        a = a.reshape(M, 2 * kp)
-        got_re = torch.matmul(a, b_re)
-        got_im = torch.matmul(a, b_im)
-        scale = float(want_re[0, b].abs().max())
-        assert float((got_re[:, :wx] - want_re[0, b]).abs().max()) <= 1e-5 * scale
-        assert float((got_im[:, :wx] - want_im[0, b]).abs().max()) <= 1e-5 * scale
+        a_re = torch.where(es == 1, -ci[:, kx], cr[:, kx])
+        a_im = torch.where(es == 1, cr[:, kx], ci[:, kx])
+        got_re = torch.matmul(a_re, b)
+        got_im = torch.matmul(a_im, b)
+        scale = float(want_re[0, band].abs().max())
+        assert float((got_re[:, :wx] - want_re[0, band]).abs().max()) <= 1e-5 * scale
+        assert float((got_im[:, :wx] - want_im[0, band]).abs().max()) <= 1e-5 * scale
         # the padded window columns stay 0
         assert float(got_re[:, wx:].abs().max()) == 0.0
         assert float(got_im[:, wx:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 5, 50])
+@pytest.mark.parametrize("n_bands,M,m", [(4, 16000, 4000), (4, 4004, 1001),
+                                         (5, 70, 32), (3, 4 * 250 + 3, 250)])
+def test_crosspower_schedule_covers_every_row_once(tiles, n_bands, M, m):
+    """Kernel (b)'s persistent schedule: the items that the grid's blocks
+    take in turn (block b: items b, b + grid, ...) cover every (tile, band,
+    ky) exactly once, also where m is no multiple of the item's band rows,
+    M no multiple of m, the repeats no multiple of the item's, and the
+    bands no multiple of the item's; an item's rows read its own band
+    rows; and a few tiles still give every SM of the card an item."""
+    sms = 132
+    grid, items, rep_groups, row_blocks = pcc.crosspower_schedule(
+        tiles, n_bands, M, m, sms)
+    assert grid == min(items, sms)
+    if tiles * n_bands * M >= 4 * sms * pcc.ITEM_ROWS * pcc.ITEM_REPS:
+        assert grid == sms
+    seen = np.zeros((tiles, n_bands, M), dtype=np.int32)
+    for b in range(grid):
+        for i in range(b, items, grid):
+            tile, band0, rows = pcc.crosspower_item(
+                i, n_bands, M, m, rep_groups, row_blocks)
+            assert len(rows) <= pcc.ITEM_ROWS * pcc.ITEM_REPS
+            # at most ITEM_ROWS distinct band rows, each at most ITEM_REPS times
+            assert len({ky % m for ky in rows}) <= pcc.ITEM_ROWS
+            seen[tile, band0:band0 + pcc.ITEM_BANDS, rows] += 1
+    assert (seen == 1).all()
 
 
 def test_crosspower_plain_rounds_like_the_tpu_kernel(rng):
