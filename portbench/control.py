@@ -1,5 +1,6 @@
 """The readings that the comparison's limits are set from, at a cell's
-own sizes on the card (``judge.py`` says what is compared).
+own sizes on the card (the configuration's judge, ``judges/<judge>.py``,
+says what is compared).
 
     python3 portbench/control.py --workload <cell> --seeds 11,12,13 \
         [--sides program,control]
@@ -7,12 +8,13 @@ own sizes on the card (``judge.py`` says what is compared).
 For every seed: ``program`` runs the cell's route on each scene of the
 seed's pool and judges the outputs as a run does; ``control`` puts the
 reference, a precision step below the configuration's everywhere
-(``reference.Precision(low=True)``), in the program's place.  A limit
-lies above every sound reading of the program and below the control's.
-One JSON line a seed and side, with the reference's least distance of a
-response from its threshold (how near a valid count came to changing)
-and the seconds the reference took.  The benchmark's runs never run the
-control.
+(``reference.Precision(low=True)``, through the judge's
+``reference_estimate`` and ``reference_rasters``), in the program's
+place.  A limit lies above every sound reading of the program and below
+the control's.  One JSON line a seed and side, with the reference's least
+distance of a response from its threshold (how near a valid count came
+to changing) and the seconds the reference took.  The benchmark's runs
+never run the control.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ def readings(cell: str, seed: int, side: str, device="cuda",
     from portbench import reference as ref
 
     _cell, cfg, traffic, _e2e, _layer = harness.load_cell(cell, overrides)
+    jmod = judge.find(cfg["judge"])
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     width, overlap = cfg["pixels_per_line"], cfg["fold_cols"]
@@ -57,26 +60,21 @@ def readings(cell: str, seed: int, side: str, device="cuda",
         del route
     tables, pool = scenes.make_pool(seed, traffic, width, overlap, dev)
     low = ref.Precision(low=True)
-    res = {k: 0 for k in judge.NUMBERS}
+    res = {}
     margin = float("inf")
     t0 = time.perf_counter()
     for j, scene in enumerate(pool):
         rs = []
-        r_est = judge.reference_estimate(scene, tables, cfg, responses=rs)
-        thr = (cfg["threshold"], cfg["stt_threshold"])
-        margin = min([margin] + [float((r - t).abs().min())
-                                 for r, t in zip(rs, thr)])
+        r_est = jmod.reference_estimate(scene, tables, cfg, responses=rs)
+        margin = min(margin, jmod.response_margin(rs, cfg))
         if side == "program":
-            est, (aligned, stitched) = outs.pop(j)
+            est, rasters = outs.pop(j)
         else:
-            est = judge.reference_estimate(scene, tables, cfg, low)
-            cx, cy, _n, dx, dy, _ns = est
-            aligned, stitched = judge.reference_rasters(
-                scene, tables, cfg, cx, cy, dx, dy, low)
-        judge.worst(res, judge.estimate_gaps(est, r_est, width))
-        judge.worst(res, judge.raster_gaps(scene, tables, cfg, est, aligned,
-                                           stitched))
-        del aligned, stitched
+            est = jmod.reference_estimate(scene, tables, cfg, low)
+            rasters = jmod.reference_rasters(scene, tables, cfg, est, low)
+        judge.worst(res, jmod.estimate_gaps(est, r_est, width))
+        judge.worst(res, jmod.raster_gaps(scene, tables, cfg, est, rasters))
+        del rasters
     if dev.type == "cuda":
         torch.cuda.synchronize()
     res.update(workload=cell, seed=seed, side=side,

@@ -3,11 +3,13 @@ traced sub-window, the check, the metrics.
 
 Everything is found by name.  ``BENCHMARK.json`` names the cell's
 configuration (``configs/<config>.json``, whose ``route`` names the
-module under ``routes/`` that drives the program) and its traffic mix
-(``traffic/<traffic>.json``, read by ``scenes.py``); each metric is read by
-``metrics/<metric>.py``; the comparison's limits are
-``limits/<config>.json``.  A cell, configuration, traffic mix or metric is
-added by adding files and entries, never by editing this one.
+module under ``routes/`` that drives the program and whose ``judge`` names
+the module under ``judges/`` that compares its outputs with the plain
+reference) and its traffic mix (``traffic/<traffic>.json``, read by
+``scenes.py``); each metric is read by ``metrics/<metric>.py``; the
+comparison's limits are ``limits/<config>.json``.  A cell, configuration,
+traffic mix or metric is added by adding files and entries, never by
+editing this one.
 
 The window is a closed loop: one scene in flight, the pool's scenes in
 turn, back to back, each timed from its call to its outputs being
@@ -180,6 +182,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, t_start: float,
     caller has found the card; ``overrides`` as :func:`load_cell`."""
     cell, cfg, traffic, e2e, layer = load_cell(name, overrides)
     limits = judge.load_limits(cell["config"])
+    jmod = judge.find(cfg["judge"])
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     # the kx / ky contractions and the stt matmuls are float32 matmuls, as
@@ -246,15 +249,15 @@ def run(name: str, seed: int, seconds: float, traced: bool, t_start: float,
     if cuda:
         torch.cuda.empty_cache()
     _tables, pool = scenes.make_pool(seed, traffic, width, overlap, dev)
-    ref_est = [judge.reference_estimate(s, _tables, cfg) for s in pool]
-    readings = {k: 0 for k in judge.NUMBERS}
+    ref_est = [jmod.reference_estimate(s, _tables, cfg) for s in pool]
+    readings = {}
     for j, est in estimates:
-        judge.worst(readings, judge.estimate_gaps(est, ref_est[j], width))
-    for slot, (aligned, stitched) in kept.items():
+        judge.worst(readings, jmod.estimate_gaps(est, ref_est[j], width))
+    for slot, rasters in kept.items():
         j, est = estimates[kept_scene[slot]]
-        judge.worst(readings, judge.raster_gaps(pool[j], _tables, cfg, est,
-                                                aligned, stitched))
-    correct, checks = judge.verdict(readings, limits)
+        judge.worst(readings, jmod.raster_gaps(pool[j], _tables, cfg, est,
+                                               rasters))
+    correct, checks = judge.verdict(readings, limits, jmod.NUMBERS)
 
     # ---- the metrics
     ctx = Context(cell, cfg, traffic, setup_s, window_s, n, pixels,

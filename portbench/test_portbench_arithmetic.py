@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from portbench import judge, readers, roofline, scenes
+from portbench.judges import scene as scene_judge
 from portbench.routes import resident
 
 
@@ -14,6 +15,14 @@ def test_pixels_of_a_160000_line_scene():
                      torch.empty(160000, 12288, dtype=torch.uint16),
                      torch.empty(4, 40000, 3072, dtype=torch.uint16))
     assert s.pixels == 4_423_680_000
+
+
+def test_pixels_of_a_160000_line_dual_scene():
+    # CMOS2's 4 bands of (40000, 3072) besides: 491,520,000 more
+    pan = torch.empty(160000, 12288, dtype=torch.uint16)
+    mss = torch.empty(4, 40000, 3072, dtype=torch.uint16)
+    s = scenes.Scene(pan, pan, mss, mss)
+    assert s.pixels == 4_915_200_000
 
 
 def test_crosspower_shape_and_bound_of_the_scene():
@@ -58,18 +67,18 @@ def test_estimate_gaps_in_pan_pixels():
            torch.tensor(2.0), torch.tensor(10))
     moved = (cx + torch.tensor([0.0, 1e-6]), cy, torch.tensor([20] * 4),
              torch.tensor(-3.0), torch.tensor(2.25), torch.tensor(10))
-    g = judge.estimate_gaps(moved, est, 1280)
+    g = scene_judge.estimate_gaps(moved, est, 1280)
     # a slope gap of 1e-6 at the last band column's PAN coordinate 4 * 319
     assert g["fit_gap_px"] == pytest.approx(1e-6 * 4 * 319, rel=1e-6)
     assert g["stt_gap_px"] == 0.25
     inf = float("inf")
     nan = (cx * float("nan"), cy, *est[2:])
-    assert judge.estimate_gaps(nan, est, 1280)["fit_gap_px"] == inf
+    assert scene_judge.estimate_gaps(nan, est, 1280)["fit_gap_px"] == inf
     # another count of valid tiles or sections: fits over other samples
     fewer = (cx, cy, torch.tensor([20, 19, 20, 20]), *est[3:])
-    assert judge.estimate_gaps(fewer, est, 1280)["fit_gap_px"] == inf
+    assert scene_judge.estimate_gaps(fewer, est, 1280)["fit_gap_px"] == inf
     lost = (*est[:5], torch.tensor(9))
-    assert judge.estimate_gaps(lost, est, 1280)["stt_gap_px"] == inf
+    assert scene_judge.estimate_gaps(lost, est, 1280)["stt_gap_px"] == inf
 
 
 def test_the_reservoir_keeps_a_uniform_sample():
@@ -82,3 +91,27 @@ def test_the_reservoir_keeps_a_uniform_sample():
             counts[i] += 1
     assert sum(counts) == 4000
     assert all(300 < c < 500 for c in counts)
+
+
+def test_a_verdict_needs_a_limit_for_each_number_and_no_more():
+    numbers = ("a_gap", "b_gap")
+    readings = {"a_gap": 0.5, "b_gap": 0}
+    ok, checks = judge.verdict(readings, {"a_gap": 1.0, "b_gap": 0},
+                               numbers)
+    assert ok and list(checks) == ["a_gap", "b_gap"]
+    # a number of the judge's without a limit
+    ok, checks = judge.verdict(readings, {"a_gap": 1.0}, numbers)
+    assert not ok and checks["b_gap"] == {"value": 0, "limit": None}
+    # a limit of a number the judge does not compare
+    ok, checks = judge.verdict(readings, {"a_gap": 1.0, "b_gap": 0,
+                                          "c_gap": 2.0}, numbers)
+    assert not ok and checks["c_gap"] == {"value": None, "limit": 2.0}
+    # a number of the judge's that no comparison read
+    ok, checks = judge.verdict({"a_gap": 0.5}, {"a_gap": 1.0, "b_gap": 0},
+                               numbers)
+    assert not ok and checks["b_gap"]["value"] is None
+    # over a limit, or not finite
+    assert not judge.verdict({"a_gap": 1.5, "b_gap": 0},
+                             {"a_gap": 1.0, "b_gap": 0}, numbers)[0]
+    assert not judge.verdict({"a_gap": float("inf"), "b_gap": 0},
+                             {"a_gap": 1.0, "b_gap": 0}, numbers)[0]

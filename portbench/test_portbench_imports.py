@@ -13,6 +13,7 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 from portbench import control, harness, judge, readers, reference, roofline
 from portbench import scenes, trace
+from portbench.judges import scene
 from portbench.routes import resident
 for m in harness.load_benchmark()["end_to_end"] + \
         harness.load_benchmark()["per_layer"]:
@@ -32,8 +33,11 @@ def test_no_jax_in_the_harness_or_the_reference():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for name in ("reference.py", "judge.py", "scenes.py", "roofline.py"):
-        text = (ROOT / "portbench" / name).read_text()
+    here = ROOT / "portbench"
+    for path in [here / name for name in ("reference.py", "judge.py",
+                                          "scenes.py", "roofline.py")] + \
+            sorted((here / "judges").glob("*.py")):
+        text = path.read_text()
         assert "opticalimageprocessor_tpu" not in text.replace(
             "opticalimageprocessor_tpu_torch", "")
         assert "import opticalimageprocessor_tpu_torch" not in text

@@ -58,10 +58,12 @@ def test_config_files(conf):
     cfg = json.loads((harness.ROOT / conf["file"]).read_text())
     assert cfg["name"] == conf["name"]
     assert (harness.HERE / "routes" / f"{cfg['route']}.py").is_file()
+    assert (harness.HERE / "judges" / f"{cfg['judge']}.py").is_file()
     for key in conf["reduced"]:
         assert NAME.match(key) and key in cfg
+    # the limits name exactly the numbers that the judge compares
     limits = judge.load_limits(conf["name"])
-    assert set(limits) == set(judge.NUMBERS)
+    assert set(limits) == set(judge.find(cfg["judge"]).NUMBERS)
     assert any(w["config"] == conf["name"] for w in BENCH["workloads"])
 
 

@@ -4,12 +4,12 @@ broken underneath, or the control in the program's place, comes out not
 correct.  (The look for a card is run.py's; these call the harness
 behind it.)"""
 
+import importlib
+import importlib.util
 import time
 
 import pytest
 import torch
-
-from opticalimageprocessor_tpu_torch.models import device_pipeline
 
 from portbench import control, harness, judge
 
@@ -28,6 +28,12 @@ def _threads():
     torch.set_num_threads(n)
 
 
+def judge_of(cell):
+    """The name of the cell's judge, as its configuration's file gives
+    it."""
+    return harness.load_cell(cell)[1].get("judge")
+
+
 def run(cell, seconds=0.3):
     return harness.run(cell, SEED, seconds, False, time.perf_counter(),
                        device="cpu", overrides=SMALL)
@@ -39,7 +45,8 @@ def test_a_sound_run_is_correct(cell):
     assert res["correct"], lines
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert list(res)[-1] == "checks"
-    assert all(res["checks"][k]["value"] == 0 for k in judge.NUMBERS)
+    numbers = judge.find(judge_of(cell)).NUMBERS
+    assert all(res["checks"][k]["value"] == 0 for k in numbers)
     assert "setup_s" in res["metrics"]
 
 
@@ -48,93 +55,39 @@ def test_the_control_is_not_correct(cell):
     r = control.readings(cell, SEED, "control", "cpu", SMALL)
     conf = next(w["config"] for w in harness.load_benchmark()["workloads"]
                 if w["name"] == cell)
-    ok, checks = judge.verdict(r, judge.load_limits(conf))
+    ok, checks = judge.verdict(r, judge.load_limits(conf),
+                               judge.find(judge_of(cell)).NUMBERS)
     assert not ok, checks
 
 
-def _altered_pixel(monkeypatch):
-    real = device_pipeline.remap_const_stitch_chunked
-
-    def altered(*a, **kw):
-        out = real(*a, **kw)
-        st = out[0] if isinstance(out, tuple) else out
-        st[7, 11] = (st[7, 11].to(torch.int32) ^ 1).to(torch.uint16)
-        return out
-
-    monkeypatch.setattr(device_pipeline, "remap_const_stitch_chunked",
-                        altered)
-    return "stitched_dn_gap"
+def _faults(cell):
+    """The faults module of the cell's judge, ``faults/<judge>.py``, or
+    None where there is none."""
+    name = f"portbench.faults.{judge_of(cell)}"
+    if importlib.util.find_spec(name) is None:
+        return None
+    return importlib.import_module(name)
 
 
-def _raster_never_written(monkeypatch):
-    real = device_pipeline.remap_bands_interleaved
-
-    def unwritten(src, *a, **kw):
-        return torch.zeros_like(real(src, *a, **kw))
-
-    monkeypatch.setattr(device_pipeline, "remap_bands_interleaved",
-                        unwritten)
-    return "aligned_dn_gap"
-
-
-def _half_the_tiles(monkeypatch):
-    real = device_pipeline.fit_tiles
-
-    def half(geom, dx, dy, rs, threshold=0.4):
-        rs = rs.clone()
-        rs[rs.shape[0] // 2:] = 0.0     # left out; the fit over the rest
-        return real(geom, dx, dy, rs, threshold)
-
-    monkeypatch.setattr(device_pipeline, "fit_tiles", half)
-    return "fit_gap_px"
-
-
-def _fit_shifted_with_its_rasters(monkeypatch):
-    # a wrong estimate that the transform then follows: the rasters agree
-    # with the reference's resample at that estimate, the fit does not
-    real = device_pipeline.fit_tiles
-
-    def shifted(*a, **kw):
-        coeffs, n_valid = real(*a, **kw)
-        return [(cx + torch.tensor([2e-3, 0.0]), cy)
-                for cx, cy in coeffs], n_valid
-
-    monkeypatch.setattr(device_pipeline, "fit_tiles", shifted)
-    return "fit_gap_px"
-
-
-def _stt_shifted_with_its_raster(monkeypatch):
-    real = device_pipeline.stt_average
-
-    def shifted(*a, **kw):
-        dx, dy, rs, n = real(*a, **kw)
-        return dx + 0.25, dy, rs, n
-
-    monkeypatch.setattr(device_pipeline, "stt_average", shifted)
-    return "stt_gap_px"
-
-
-FAULTS = {
-    "resident_scene_160k": [_altered_pixel, _raster_never_written,
-                            _half_the_tiles, _fit_shifted_with_its_rasters,
-                            _stt_shifted_with_its_raster],
-}
-SELF_CONSISTENT = (_fit_shifted_with_its_rasters, _stt_shifted_with_its_raster)
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_judge_has_faults(cell):
+    mod = _faults(cell)
+    assert mod is not None and mod.FAULTS, (
+        f"{cell}: no faults/{judge_of(cell)}.py with FAULTS")
 
 
 @pytest.mark.parametrize("cell, fault", [
-    (c, f) for c in CELLS for f in FAULTS[c]],
-    ids=lambda v: v if isinstance(v, str) else v.__name__)
+    (c, f.__name__) for c in CELLS for f in getattr(_faults(c), "FAULTS", [])])
 def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
-    number = fault(monkeypatch)
+    mod = _faults(cell)
+    planted = getattr(mod, fault)
+    number = planted(monkeypatch)
     res, lines = run(cell)
     assert not res["correct"], lines
     c = res["checks"][number]
     assert c["value"] > c["limit"], lines
-    if fault in SELF_CONSISTENT:
-        # the rasters alone, judged at the program's estimate, miss it
-        assert res["checks"]["aligned_dn_gap"]["value"] == 0, lines
-        assert res["checks"]["stitched_dn_gap"]["value"] == 0, lines
+    for k in mod.unmoved(planted):
+        assert res["checks"][k]["value"] == 0, lines
 
 
 def test_the_card_runs_a_cell():
