@@ -16,7 +16,10 @@ Per scene:
              PAN2 and the seam concat (kernel (d))
 
 :class:`MssAlign` aligns CMOS2's MSS against the prestitched PAN2 the same
-way (RRC, registration, one kernel-(c) launch at row bound 6).  The
+way (RRC, registration, one kernel-(c) launch at row bound 6), and
+:class:`DualScenePipeline` runs the reference's whole sample task on one
+device: the scene, CMOS2's MSS aligned against its prestitched PAN2, and
+the two aligned rasters stitched at the seam (:func:`stitch_mss_seam`).  The
 registration is split into its sampling geometry (:func:`register_geometry`)
 and a core on gathered tiles (:func:`register_tiles`), so the streamed scene
 (``models/scene_stream``) uploads only the sampled rows and still gets the
@@ -548,6 +551,63 @@ class MssAlign(nn.Module):
         cx = torch.stack([c[0] for c in coeffs])
         cy = torch.stack([c[1] for c in coeffs])
         return self.remap(mss_c, cx, cy), n_valid, (cx, cy)
+
+
+def mss_fold_half(fold_cols: int) -> int:
+    """Fold columns each aligned MSS raster loses at the seam: the MSS
+    folds PAN's ``fold_cols / 4`` (sample-task.sh FOLDCOL_MSS), half a
+    side."""
+    return max(1, fold_cols // MSS_BANDS // 2)
+
+
+def stitch_mss_seam(aligned, aligned2, fold_cols: int):
+    """The two aligned MSS rasters (rows, W/4, 4) stitched at the seam
+    (sample-task.sh step 4): CMOS1's without its right ``mss_fold_half``
+    columns ++ CMOS2's without its left ones -> (rows, 2 * (W/4 - fold
+    half), 4)."""
+    fh = mss_fold_half(fold_cols)
+    with span("oip.seam", aligned.device):
+        return torch.cat([aligned[:, :aligned.shape[1] - fh],
+                          aligned2[:, fh:]], dim=1)
+
+
+class DualScenePipeline(nn.Module):
+    """The reference's whole sample task (``DOC/sample-task.sh`` steps 2-4)
+    on one device, as one module: the scene (:class:`ScenePipeline`,
+    which must return the prestitched PAN2), CMOS2's MSS aligned against
+    that prestitched PAN2 (:class:`MssAlign`, step 3.2), and the two
+    aligned MSS rasters stitched at the seam (:func:`stitch_mss_seam`,
+    step 4).  ``fold_cols`` is the scene's ``-c``: PAN's fold columns,
+    whose quarter the MSS folds."""
+
+    def __init__(self, pipe: ScenePipeline, align: MssAlign, fold_cols: int):
+        super().__init__()
+        if not pipe.return_prestt:
+            raise ValueError("the dual scene aligns CMOS2's MSS against the "
+                             "prestitched PAN2: needs return_prestt=True")
+        self.pipe = pipe
+        self.align = align
+        self.fold_cols = fold_cols
+
+    def forward(self, pan1, pan2, mss, mss2):
+        """``pan1``/``pan2`` (L, W), ``mss``/``mss2`` (4, L/4, W/4) uint16
+        RAW strips -> (aligned, stitched, aligned2, stitched_mss, n_valid,
+        n_stt, n_valid2, params, (cx2 (4, 2), cy2 (4, 3))), the first five
+        and params as :meth:`ScenePipeline.forward` gives them."""
+        pipe = self.pipe
+        dev = pan1.device
+        with span(SCENE_SPAN, dev):
+            cx, cy, n_valid, raw_dx, raw_dy, n_stt = pipe.estimate(
+                pan1, pan2, mss)
+            aligned, stitched, prestt = pipe.transform(
+                pan1, pan2, mss, cx, cy, raw_dx, raw_dy)
+            with span("oip.align2", dev):
+                aligned2, n_valid2, fit2 = self.align(prestt, mss2)
+            del prestt
+            stitched_mss = stitch_mss_seam(aligned, aligned2, self.fold_cols)
+            dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
+        return (aligned, stitched, aligned2, stitched_mss, n_valid, n_stt,
+                n_valid2, (cx, cy, dxs, dys, raw_dx, raw_dy), fit2)
 
 
 def make_mss_align(mss_params, **cfg) -> MssAlign:

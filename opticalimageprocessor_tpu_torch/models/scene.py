@@ -43,6 +43,8 @@ from .device_pipeline import (
     check_registration_valid,
     check_stt_valid,
     make_mss_align,
+    mss_fold_half,
+    stitch_mss_seam,
 )
 
 _WRITE_ROWS = 4096   # host rows per device->host copy when writing
@@ -84,13 +86,6 @@ def default_stitched_path(out_dir, width: int) -> str:
 
 def default_stitched_mss_path(out_dir) -> str:
     return os.path.join(out_dir or os.getcwd(), f"stitched-MSS{TIFF_FILE_EXT}")
-
-
-def mss_fold_half(fold_cols: int) -> int:
-    """Fold columns each aligned MSS raster loses at the seam: the MSS
-    folds PAN's ``fold_cols / 4`` (sample-task.sh FOLDCOL_MSS), half a
-    side."""
-    return max(1, fold_cols // MSS_BANDS // 2)
 
 
 def log_band_coeffs(cx, cy, n_valid) -> None:
@@ -334,12 +329,10 @@ def _run_scene(
         drain_line_sharded_to_tiff(aligned2, aligned2_path, order=order)
     olog("Aligned MSS (CMOS2) written to %s", aligned2_path)
 
-    # the seam concat on each shard's device (both rasters are cut alike)
-    foldm_half = mss_fold_half(fold_cols)
-    half = band_px - foldm_half
+    # the seam on each shard's device (both rasters are cut alike)
+    half = band_px - mss_fold_half(fold_cols)
     stitched_mss = LineSharded(mesh, [
-        None if a is None else torch.cat([a[:, :half], b[:, foldm_half:]],
-                                         dim=1)
+        None if a is None else stitch_mss_seam(a, b, fold_cols)
         for a, b in zip(aligned.shards, aligned2.shards)
     ], 0, aligned.edges)
     del aligned, aligned2

@@ -243,3 +243,88 @@ def test_build_load_is_recorded(tmp_path, monkeypatch, cached):
     first = _build.load_s
     assert isinstance(first, float) and first >= 0.0
     assert _build.library() is lib and _build.load_s == first
+
+
+# ---- the whole sample task: DualScenePipeline.forward
+
+DUAL_SPANS = ("oip.scene", "oip.align2", "oip.seam")
+
+
+def _dual_pipeline():
+    """:func:`_pipeline`'s scene, returning the prestitched PAN2, with
+    CMOS2's MSS (the noise rolled ((b + 1) mod 2, 1 - b) under the
+    prestitched PAN2) and its align step."""
+    pipe, args = _pipeline()
+    pipe.return_prestt = True
+    rng = np.random.default_rng(8)
+    scene = np.roll(args[2][1].numpy(), -1, 0)       # band 1's roll is (1, 0)
+    shift = (200 - WIDTH) // 4
+    mss2 = np.stack([np.roll(scene, ((b + 1) % 2, shift + 1 - b), (0, 1))
+                     for b in range(4)]).astype(np.uint16)
+    align = dp.MssAlign((0.98 + 0.04 * rng.random((4, WIDTH // 4)),
+                         rng.normal(0, 20, (4, WIDTH // 4))), slices=8)
+    return dp.DualScenePipeline(pipe, align, 200), [
+        *args, torch.from_numpy(mss2)]
+
+
+def _same_dual(a, b):
+    flat = [*a[:7], *a[7], *a[8]], [*b[:7], *b[7], *b[8]]
+    for x, y in zip(*flat, strict=True):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.fixture(scope="module")
+def traced_dual(tmp_path_factory):
+    """One dual forward under a CPU profiler: -> (dual, args, outputs,
+    span_report(), the exported trace's user annotations)."""
+    dual, args = _dual_pipeline()
+    tlog.reset_span_report()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = dual(*args)
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    path = tmp_path_factory.mktemp("dual_spans") / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e["name"].startswith("oip.")]
+    return dual, args, out, report, events
+
+
+def test_traced_dual_forward_is_one_scene_with_align2_and_seam(traced_dual):
+    _dual, _args, _out, report, events = traced_dual
+    by_name = {n: [e for e in events if e["name"] == n] for n in DUAL_SPANS}
+    for name in DUAL_SPANS:
+        assert len(by_name[name]) == 1, (name, len(by_name[name]))
+        assert report[name]["calls"] == 1, name
+    (scene_ev,) = by_name["oip.scene"]
+    for name in ("oip.align2", "oip.seam"):
+        assert _inside(by_name[name][0], scene_ev), name
+        assert report[name]["parent"] == "oip.scene", name
+    # the second registration's steps nest in oip.align2: each registration
+    # step twice, the second time inside it
+    (align2,) = by_name["oip.align2"]
+    for name in REGISTER:
+        evs = [e for e in events if e["name"] == name]
+        assert len(evs) == 2 and report[name]["calls"] == 2, name
+        assert [_inside(e, align2) for e in evs] == [False, True], name
+    assert not _inside(by_name["oip.seam"][0], align2)
+    assert {e["name"] for e in events} == set(SPANS) | set(DUAL_SPANS)
+
+
+def test_host_syncs_count_four_a_dual_forward(traced_dual):
+    """The forward reads back what ScenePipeline.forward does: the stt
+    deltas, clamped for the transform and again for the returned
+    parameters; the second registration and the seam read nothing."""
+    _dual, _args, _out, report, _events = traced_dual
+    assert report["host_syncs"]["count"] == 4
+    assert report["host_syncs"]["calls"] == 4
+
+
+def test_dual_outputs_identical_with_tracing_on_and_off(traced_dual):
+    dual, args, out, _report, _events = traced_dual
+    assert not tlog.tracing()
+    _same_dual(out, dual(*args))
