@@ -14,16 +14,22 @@ intervals, idle share; no other phase runs):
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, torch/CUDA versions, and the build of
-   the six hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
+   the seven hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its stated tolerance, both timed
    with CUDA events, beside the kernel's bound (the bytes it must move at
    3.35 TB/s against its operations at the card's peak for their type);
    kernel (c) at the scene's 4 interleaved bands, the prestitch of PAN2
-   and a file-align band, kernels (b) and (d) also at the 32768-line
-   scene's shapes (20 tiles; a 32768-row pair), and (b) beside cuBLAS's
-   bare bf16 GEMM of the same real-ified product ("GEMM only, no
-   whitening"), which the port never calls; kernel (e) at 9 shapes (U 18
+   and a file-align band, kernel (b)'s ``D`` (the real parts over the
+   imaginary ones, a (tile, band) in its window columns) against the
+   plain ``D``, both through ``contract_rows_stacked``; kernel (g), the
+   stacked ky contraction, at the scene's shape and ragged ones against
+   its plain version, a block of tiles' columns bit for bit the whole
+   scene's, beside cuBLAS's product; kernels (b) and (d) also at the
+   32768-line scene's shapes (20 tiles; a 32768-row pair), and (b)
+   beside cuBLAS's bare bf16 GEMM of the same real-ified product ("GEMM
+   only, no whitening"), which the port never calls; kernel (e) at 9
+   shapes (U 18
    to 100, 8189 rows, widths 1000 / 1001 / 3072), at 0 ulp, beside cuDNN's
    depthwise conv1d of the same sum (also never called by the port);
    kernel (c) also at MSS2's row bound 6 on the scene's 4 bands, and (d)
@@ -37,8 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
    ALIGNED.TIFFs byte for byte -- with every kernel's launch count read
    around this run;
 4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
-   path against the plain path with pinned estimates (its time is the
-   benchmark's, ``portbench/``);
+   path against the plain path with pinned estimates, one launch each of
+   kernels (b) and (g) an estimate (its time is the benchmark's,
+   ``portbench/``);
 5. the file workflow through ``cli.main`` on 16384-line RAW files:
    ``prestitch --fast`` on a CMOS pair 3 rows apart (kernel (c)'s route)
    and on one 9 rows apart (the staged route, kernel (e)), the default
@@ -245,20 +252,23 @@ def stitch_bound(rows, width, fold, want_prestt=False) -> dict:
 
 def crosspower_vs_plain(tag, kargs, packed, M, N, win_y, win_x):
     """Kernel (b) against ``_crosspower_plain`` on the same operands
-    ``kargs`` (fpan, fband, hr, hc, ex_c, ex_s): the peaks within 1e-3 px
-    and 1e-4 of response, the surfaces within 1e-4 relative.  -> (max |d
-    shift| px, max |d response|, surface rel err, window rel err, the
-    kernel's peaks)."""
+    ``kargs`` (fpan, fband, hr, hc, ex_c, ex_s): both ``D`` (2M, T*NB*wx:
+    the real parts over the imaginary ones, pair tile * NB + band in its wx
+    columns) and both contracted by ``contract_rows_stacked``; the peaks
+    within 1e-3 px and 1e-4 of response, the surfaces within 1e-4
+    relative.  -> (max |d shift| px, max |d response|, surface rel err,
+    window rel err, the kernel's peaks)."""
     import torch
 
     from opticalimageprocessor_tpu_torch.ops import phasecorr
     from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
 
-    dr_k, di_k = pcc._crosspower_cuda(*kargs, packed)
-    dr_p, di_p = pcc._crosspower_plain(*kargs)
+    d_k = pcc._crosspower_cuda(*kargs, packed)
+    d_p = pcc._crosspower_plain(*kargs)
     torch.cuda.synchronize()
-    corr_k = phasecorr.contract_rows(dr_k, di_k, M, N, win_y)
-    corr_p = phasecorr.contract_rows(dr_p, di_p, M, N, win_y)
+    pairs = kargs[1].shape[:2]
+    corr_k = pcc.contract_rows_stacked(d_k, M, N, win_y, *pairs)
+    corr_p = pcc.contract_rows_stacked(d_p, M, N, win_y, *pairs)
     peak_k = phasecorr._centroid_on_window(corr_k, win_y, win_x)
     peak_p = phasecorr._centroid_on_window(corr_p, win_y, win_x)
     d_shift = max(float((peak_k[i] - peak_p[i]).abs().max()) for i in (0, 1))
@@ -270,7 +280,7 @@ def crosspower_vs_plain(tag, kargs, packed, M, N, win_y, win_x):
     # (one zeroed window column, or kx >= 512 left out of the sum, reads
     # 0.12-0.17 on a 1-tile 4000 x 1228 case; the kernel reads ~2e-6)
     surf = max(float((k - p).abs().max() / p.abs().max())
-               for k, p in ((dr_k, dr_p), (di_k, di_p)))
+               for k, p in ((d_k[:M], d_p[:M]), (d_k[M:], d_p[M:])))
     window = float((corr_k - corr_p).abs().max() / corr_p.abs().max())
     say(f"{tag}: max |d shift| {d_shift:.3g} px, |d response| "
         f"{d_resp:.3g}, surface rel err {surf:.3g}, window rel err "
@@ -470,6 +480,9 @@ def phase_kernels(dev, records):
     records["crosspower"].update(gemm_only_ms=gemm[2],
                                  scene_gemm_only_ms=gemm[tiles])
 
+    phase_ky_gemm(dev, records)
+    torch.cuda.empty_cache()
+
     phase_remap(dev, rng, records)
     torch.cuda.empty_cache()
     say(f"[c] {records['remap_band']}")
@@ -663,6 +676,68 @@ def f32(dev, *rows):
 # crossing col_halo mid-strip, and G beyond the row bound
 PAST_COL_HALO = ([40.0, 5.0e-3], [1.2, 0.0, 0.0])
 PAST_ROW_BOUND = ([-2.5, 0.0], [22.0, 0.0, 0.0])
+
+
+def phase_ky_gemm(dev, records):
+    """Kernel (g), the stacked ky contraction, at the 160000-line scene's
+    shape (M = 16000, T = 50 tiles x 4 bands x 129 window columns) and at
+    ragged ones (M not a multiple of its 8-row stages, columns not of 4, a
+    narrower window): against its plain version (float32 sums in another
+    order: within 1e-5 of the output's largest magnitude), and every column
+    of a block of tiles bit for bit the whole's (a line-mesh shard's tiles
+    read as the scene's); timed beside cuBLAS's stacked product of all 129
+    rows (a 128-row GEMM and a GEMV; the port never calls it)."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch.ops import phasecorr
+    from opticalimageprocessor_tpu_torch.ops import phasecorr_cuda as pcc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    worst = 0.0
+    for M, cols, win in ((16000, 50 * 4 * 129, 64), (1003, 3 * 3 * 33, 16),
+                         (4004, 5 * 4 * 129, 64), (32, 7, 3)):
+        d = torch.randn((2 * M, cols), generator=gen, device=dev)
+        wt = pcc._ky_weights(M, win, dev)
+        got = pcc._ky_gemm_cuda(wt, d, M, win)
+        want = pcc._ky_gemm_plain(wt, d, M, win)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, err)
+        say(f"[g] ky_gemm M {M} x {cols} columns, win {win}: rel err "
+            f"{err:.3g} against the plain version")
+        check(err <= 1e-5, f"ky_gemm M {M} x {cols}: {err:.3g} vs plain")
+        if M != 16000:
+            continue
+        for t0, t in ((0, 5), (7, 5), (45, 5), (3, 1), (10, 20)):
+            blk = d[:, t0 * 516:(t0 + t) * 516].contiguous()
+            part = pcc._ky_gemm_cuda(wt, blk, M, win)
+            check(torch.equal(part, got[:, t0 * 516:(t0 + t) * 516]),
+                  f"ky_gemm: tiles {t0}..{t0 + t - 1} alone != as part of "
+                  "50")
+        say("[g] ky_gemm: every block of tiles bit for bit the 50 tiles' "
+            "columns")
+        cy_c, cy_s = phasecorr.eval_consts(M, M, win, True, dev)
+        w = torch.cat((cy_c.T, -cy_s.T), dim=1)
+
+        def cublas():
+            out = torch.empty((2 * win + 1, cols), device=dev)
+            torch.matmul(w[:-1], d, out=out[:-1])
+            torch.mv(d.T, w[-1], out=out[-1])
+            return out
+
+        flop = 2 * (2 * win + 1) * M * cols
+        records["ky_gemm"] = dict(
+            ms=time_ms(lambda: pcc._ky_gemm_cuda(wt, d, M, win), 10),
+            plain_ms=time_ms(lambda: pcc._ky_gemm_plain(wt, d, M, win), 3),
+            library_ms=time_ms(cublas, 10),
+            library="cuBLAS: all 129 rows, torch.matmul of 128 and torch.mv "
+            "of the last",
+            shape=f"D (2 x {M}, {cols}), window rows {2 * win + 1}",
+            **bound(4 * d.numel(), operations=(flop, F32_FLOPS)),
+        )
+        del blk, part, w
+    records["ky_gemm"]["max_abs_err"] = worst
+    say(f"[g] {records['ky_gemm']}")
 
 
 def phase_remap(dev, rng, records):
@@ -981,9 +1056,9 @@ def phase_pipeline(dev, lines: int = 32768):
     ).to(dev)
     _build.reset_launch_counts()
     cx, cy, n_valid, raw_dx, raw_dy, n_stt = pipe.estimate(pan1, pan2, mss)
-    check(_build.LAUNCHES["crosspower"] == 1,
-          f"a scene's estimate took {_build.LAUNCHES['crosspower']} kernel-(b) "
-          "launches, not 1")
+    for k in ("crosspower", "ky_gemm"):
+        check(_build.LAUNCHES[k] == 1, f"a scene's estimate took "
+              f"{_build.LAUNCHES[k]} launches of {k}, not 1")
     check_registration_valid(n_valid.cpu())
     check_stt_valid(n_stt)
     say(f"[pipe] n_valid {n_valid.tolist()} n_stt {int(n_stt)} "
@@ -3617,6 +3692,9 @@ def main() -> int:
                         "opticalimageprocessor_tpu/ops/resample.py:1149"),
         "row_pass": ("opticalimageprocessor_tpu_torch/csrc/row_pass.cu",
                      "opticalimageprocessor_tpu/ops/resample.py:652"),
+        # not a TPU kernel: the einsum the JAX package leaves to XLA
+        "ky_gemm": ("opticalimageprocessor_tpu_torch/csrc/ky_gemm.cu",
+                    "opticalimageprocessor_tpu/ops/phasecorr_pallas.py:266"),
         # not a TPU kernel: the XLA program the JAX package runs a section
         "remap_section": (
             "opticalimageprocessor_tpu_torch/csrc/remap_section.cu",

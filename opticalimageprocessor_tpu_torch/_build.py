@@ -44,6 +44,7 @@ LAUNCHES: dict[str, int] = {
     "stitch_tail": 0,
     "row_pass": 0,
     "remap_section": 0,
+    "ky_gemm": 0,
 }
 
 _P = ctypes.c_void_p
@@ -55,14 +56,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "oip_rrc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
     "oip_crosspower": [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P,
     ],
     "oip_remap_bands": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     "oip_stitch_tail": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
     ],
     "oip_row_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "oip_ky_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "oip_remap_section": [
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,

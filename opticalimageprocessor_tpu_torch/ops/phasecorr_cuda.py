@@ -6,9 +6,11 @@ spectrum ``F_up = Hr*Hc*F_band[ky mod m, kx mod n]``, the whitened
 cross-power ``Cn = C/|C|`` with ``C = F_pan*conj(F_up)``, and contracts kx
 onto the 2*win_x+1 window columns with the TPU kernel's numerics: ``Cn``
 and the evaluation matrices rounded to bfloat16, the products summed in
-float32 (on the card: wgmma on the tensor cores).  The small ky ->
-window-rows contraction is a batched ``torch.matmul`` and the centroid runs
-in PyTorch, as the JAX package leaves both to XLA.
+float32 (on the card: wgmma on the tensor cores).  It writes every (tile,
+band) into one float32 matrix ``D`` (:func:`contract_rows_stacked`), so
+that on the card the ky -> window-rows contraction of all of them is one
+float32 kernel, (g); the centroid runs in PyTorch, as the JAX package
+leaves both to XLA.
 """
 
 from __future__ import annotations
@@ -71,23 +73,163 @@ def whitened_bf16(fpan_t, fband_tb, hr, hc):
 
 
 def _crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s):
-    """Plain PyTorch windowed cross-power: (T, NB, M, wx) real and
-    imaginary parts of ``sum_kx Cn[ky, kx] (Ex_c + i Ex_s)[kx, w]``, with
-    ``Cn``, ``Ex_c`` and ``Ex_s`` rounded to bfloat16 and the products
-    summed in float32 (the TPU kernel's contract; bf16 x bf16 products are
-    exact in float32), one (tile, band) at a time to bound memory."""
+    """Plain PyTorch windowed cross-power ``sum_kx Cn[ky, kx] (Ex_c + i
+    Ex_s)[kx, w]`` of every (tile, band), in kernel (b)'s layout ``D``
+    (:func:`stacked_columns`): (2M, T*NB*wx) float32, the real parts in
+    rows 0..M-1 and the imaginary parts in rows M..2M-1.  ``Cn``, ``Ex_c``
+    and ``Ex_s`` are rounded to bfloat16 and the products summed in float32
+    (the TPU kernel's contract; bf16 x bf16 products are exact in float32),
+    one (tile, band) at a time to bound memory."""
     tiles, n_bands = fband.shape[:2]
     M = fpan.shape[-2]
+    wx = ex_c.shape[1]
     ec, es = _bf16(ex_c), _bf16(ex_s)
-    out_re = torch.empty((tiles, n_bands, M, ex_c.shape[1]),
-                         dtype=torch.float32, device=fpan.device)
-    out_im = torch.empty_like(out_re)
+    d = torch.empty((2 * M, tiles * n_bands * wx), dtype=torch.float32,
+                    device=fpan.device)
     for t in range(tiles):
         for b in range(n_bands):
             cr, ci = whitened_bf16(fpan[t], fband[t, b], hr, hc)
-            out_re[t, b] = torch.matmul(cr, ec) - torch.matmul(ci, es)
-            out_im[t, b] = torch.matmul(ci, ec) + torch.matmul(cr, es)
-    return out_re, out_im
+            cols = stacked_columns(t * n_bands + b, wx)
+            d[:M, cols] = torch.matmul(cr, ec) - torch.matmul(ci, es)
+            d[M:, cols] = torch.matmul(ci, ec) + torch.matmul(cr, es)
+    return d
+
+
+def stacked_columns(pair: int, wx: int) -> slice:
+    """The columns of ``D`` that hold (tile, band) pair ``pair`` = tile *
+    NB + band: its ``wx`` window columns, in order."""
+    return slice(pair * wx, (pair + 1) * wx)
+
+
+# kernel (g), csrc/ky_gemm.cu: the shifts s = 1..KY_S in its register
+# tiles, the columns of its W^T (KY_S, then s = 0, then padding), its
+# stages of rows of D and the stages of a slice of M
+KY_S = 64
+KY_WP = 68
+KY_STAGE = 8
+KY_SLICE_STAGES = 400
+
+
+def ky_gemm_splits(M: int) -> int:
+    """The slices of each half of ``D`` that kernel (g) sums apart and then
+    adds in order: from M alone (5 at the scene's M = 16000, so that its
+    202 blocks of 128 columns by 2 halves make 2020 blocks, near-even work
+    for 132 SMs), never from the number of columns, which would change a
+    column's sums with it."""
+    stages = -(-M // KY_STAGE)
+    return max(1, -(-stages // KY_SLICE_STAGES))
+
+
+def _ky_slices(M: int):
+    """Kernel (g)'s slices of a half's M rows: (k0, k1) each, in the order
+    it adds them."""
+    stages, splits = -(-M // KY_STAGE), ky_gemm_splits(M)
+    return [(min(M, KY_STAGE * (stages * s // splits)),
+             min(M, KY_STAGE * (stages * (s + 1) // splits)))
+            for s in range(splits)]
+
+
+def _ky_weights(M: int, win_y: int, device) -> torch.Tensor:
+    """Kernel (g)'s W^T, (2M, KY_WP) float32: row k < M holds cos(2 pi k s
+    / M) for s = 1..win_y and, in column KY_S, s = 0; row M + k holds sin(2
+    pi k s / M); zero elsewhere.  Taken from the evaluation matrices'
+    columns of s >= 0 (``cy_c[k, win_y + s]`` and ``-cy_s[k, win_y +
+    s]``): they are even / odd in s to the bit, so the columns of s < 0
+    are the same numbers (tests/test_torch_phasecorr.py checks)."""
+    cy_c, cy_s = eval_consts(M, M, win_y, True, device)
+    wt = torch.zeros((2 * M, KY_WP), dtype=torch.float32, device=device)
+    wt[:M, :win_y] = cy_c[:, win_y + 1:]
+    wt[:M, KY_S] = cy_c[:, win_y]
+    torch.neg(cy_s[:, win_y + 1:], out=wt[M:, :win_y])
+    return wt
+
+
+def _ky_combine(a: torch.Tensor, b: torch.Tensor, win_y: int):
+    """Window rows from kernel (g)'s sums: (KY_S + 1, C) ``a`` (rows s =
+    1..KY_S, then s = 0) and ``b`` -> (2*win_y+1, C), row win_y +- s = a(s)
+    +- b(s), row win_y = a(0)."""
+    out = torch.empty((2 * win_y + 1, a.shape[1]), dtype=a.dtype,
+                      device=a.device)
+    out[win_y] = a[KY_S]
+    out[win_y + 1:] = a[:win_y] + b[:win_y]
+    out[:win_y] = (a[:win_y] - b[:win_y]).flip(0)
+    return out
+
+
+def _ky_gemm_plain(wt: torch.Tensor, d: torch.Tensor, M: int,
+                   win_y: int) -> torch.Tensor:
+    """Plain version of kernel (g): each half's sums ``wt[half].T @
+    d[half]`` as a float32 matmul a slice of M rows, the slices added in
+    order, then :func:`_ky_combine` -> (2*win_y+1, C)."""
+    sums = []
+    for h in (0, 1):
+        acc = None
+        for k0, k1 in _ky_slices(M):
+            rows = slice(h * M + k0, h * M + k1)
+            part = torch.matmul(wt[rows, :KY_S + 1].T, d[rows])
+            acc = part if acc is None else acc + part
+        sums.append(acc)
+    return _ky_combine(*sums, win_y)
+
+
+def _ky_gemm_cuda(wt: torch.Tensor, d: torch.Tensor, M: int,
+                  win_y: int) -> torch.Tensor:
+    """Kernel (g) on CUDA tensors -> (2*win_y+1, C): each column summed in
+    one fixed order whatever C is."""
+    cols = d.shape[1]
+    if wt.shape != (2 * M, KY_WP) or d.shape[0] != 2 * M:
+        raise ValueError(f"ky_gemm: W^T of shape {tuple(wt.shape)} and D of "
+                         f"{tuple(d.shape)} for M {M}")
+    _build.require_cuda("contract_rows_stacked", wt, d)
+    if wt.dtype != torch.float32 or d.dtype != torch.float32:
+        raise ValueError("ky_gemm: operands must be float32")
+    wt, d = wt.contiguous(), d.contiguous()
+    splits = ky_gemm_splits(M)
+    ws = torch.empty((2, splits, KY_S + 1, cols), dtype=torch.float32,
+                     device=d.device)
+    out = torch.empty((2 * win_y + 1, cols), dtype=torch.float32,
+                      device=d.device)
+    _build.launch("ky_gemm", "oip_ky_gemm", wt.data_ptr(), d.data_ptr(),
+                  ws.data_ptr(), out.data_ptr(), M, cols, splits, win_y,
+                  _build.stream_of(d), device=d.device)
+    return out
+
+
+def contract_rows_stacked(d: torch.Tensor, M: int, N: int, win_y: int,
+                          tiles: int, n_bands: int) -> torch.Tensor:
+    """``phasecorr.contract_rows`` of every (tile, band) of ``D`` at once:
+    ``D``'s rows hold ``dr`` over ``di`` (2M, T*NB*wx), so window row
+    win_y + sigma of every pair is ``A(sigma) + B(sigma)``, ``A`` the cos
+    rows over ``dr`` and ``B`` the sin rows over ``di`` -- ``cy_c.T @ dr``
+    and ``-cy_s.T @ di`` -- / (M*N).  Since ``A(-s) = A(s)`` and ``B(-s) =
+    -B(s)``, both are summed for s = 0..win_y only: half the work of the
+    (2*win_y+1)-row product, in float32, with only the order of the sums
+    changed.  On the card kernel (g) (``csrc/ky_gemm.cu``) sums each column
+    in an order that does not depend on T, so a line-mesh shard's tiles
+    read as the whole scene's; on the CPU its plain version.  ``W^T`` is
+    built at each call (8.7 MB at the scene's M; microseconds), not kept,
+    so that it never adds to the scene's peak memory.  -> (T, NB,
+    2*win_y+1, wx)."""
+    if win_y > KY_S or d.shape[0] != 2 * M:
+        raise ValueError(f"ky contraction: win_y {win_y} (at most {KY_S}), "
+                         f"D of {d.shape[0]} rows for M {M}")
+    wt = _ky_weights(M, win_y, d.device)
+    gemm = _ky_gemm_plain if d.device.type == "cpu" else _ky_gemm_cuda
+    out = gemm(wt, d, M, win_y)
+    out /= float(M * N)
+    return out.view(2 * win_y + 1, tiles, n_bands, -1).permute(1, 2, 0, 3)
+
+
+def _contract_rows_plain(d: torch.Tensor, M: int, N: int, win_y: int,
+                         tiles: int, n_bands: int) -> torch.Tensor:
+    """The CPU route's ky contraction: ``phasecorr.contract_rows`` pair by
+    pair on ``D``'s halves copied back to (T, NB, M, wx), the order of sums
+    that the benchmark's plain reference (``portbench/reference.py``)
+    takes, so that a CPU run reads the reference's estimates exactly (the
+    stacked order moves a small CPU scene's fit by ~1.5e-5 px)."""
+    dr, di = (half.reshape(M, tiles, n_bands, -1).permute(1, 2, 0, 3)
+              .contiguous() for half in (d[:M], d[M:]))
+    return contract_rows(dr, di, M, N, win_y)
 
 
 def pack_eval_operands(ex_c: torch.Tensor, ex_s: torch.Tensor) -> torch.Tensor:
@@ -173,7 +315,10 @@ def packed_eval_operands(n: int, keep: int, win: int, device) -> torch.Tensor:
 
 def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
     """Kernel (b) on CUDA tensors; ``packed`` is
-    ``pack_eval_operands(ex_c, ex_s)``."""
+    ``pack_eval_operands(ex_c, ex_s)``.  -> ``D``, (2M, T*NB*wx) float32:
+    the real parts in rows 0..M-1, the imaginary parts in rows M..2M-1,
+    (tile, band) pair p = tile * NB + band in columns
+    :func:`stacked_columns` (p, wx), as :func:`_crosspower_plain`."""
     tiles, n_bands, m, n = fband.shape
     M, keep = fpan.shape[-2], fpan.shape[-1]
     wx = ex_c.shape[1]
@@ -201,18 +346,17 @@ def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
                          f"layout for keep {keep}")
     fpan, fband = fpan.contiguous(), fband.contiguous()
     hr, hc = hr.contiguous(), hc.contiguous()
-    out_re = torch.empty((tiles, n_bands, M, wx), dtype=torch.float32,
-                         device=fpan.device)
-    out_im = torch.empty_like(out_re)
+    d = torch.empty((2 * M, tiles * n_bands * wx), dtype=torch.float32,
+                    device=fpan.device)
     grid, items, rep_groups, row_blocks = crosspower_schedule(
         tiles, n_bands, M, m, _sm_count(fpan.device))
     _build.launch(
         "crosspower", "oip_crosspower", fpan.data_ptr(), fband.data_ptr(),
-        hr.data_ptr(), hc.data_ptr(), packed.data_ptr(), out_re.data_ptr(),
-        out_im.data_ptr(), tiles, n_bands, M, keep, m, n, wx, grid, items,
-        rep_groups, row_blocks, _build.stream_of(fpan), device=fpan.device,
+        hr.data_ptr(), hc.data_ptr(), packed.data_ptr(), d.data_ptr(), tiles,
+        n_bands, M, keep, m, n, wx, grid, items, rep_groups, row_blocks,
+        _build.stream_of(fpan), device=fpan.device,
     )
-    return out_re, out_im
+    return d
 
 
 def windowed_crosspower_fused_tiles(
@@ -229,7 +373,12 @@ def windowed_crosspower_fused_tiles(
     (T, NB, m_small, n_small) complex64 full band spectra, with
     ``M = factor * m_small``.  Returns (dx, dy, response), each (T, NB),
     with the semantics of ``phasecorr.peak_from_spectra_windowed`` fed by
-    ``phasecorr.upsampled_band_spectrum``.
+    ``phasecorr.upsampled_band_spectrum``.  The cross-power comes as
+    ``D``, (2M, T*NB*wx) float32 with the real parts over the imaginary
+    ones: on the card from kernel (b), taken to the windows by one
+    :func:`contract_rows_stacked` (kernel (g)); on the CPU from
+    :func:`_crosspower_plain`, taken to the windows pair by pair by
+    :func:`_contract_rows_plain`.
     """
     M, N = pad_to
     keep = fpan.shape[-1]
@@ -245,9 +394,9 @@ def windowed_crosspower_fused_tiles(
     ex_c, ex_s = eval_consts(N, keep, win_x, False, dev)
     args = (fpan, fband, hr, hc, ex_c, ex_s)
     if dev.type == "cpu":
-        dr, di = _crosspower_plain(*args)
+        corr = _contract_rows_plain(_crosspower_plain(*args), M, N, win_y,
+                                    *fband.shape[:2])
     else:
-        dr, di = _crosspower_cuda(
-            *args, packed_eval_operands(N, keep, win_x, dev))
-    return _centroid_on_window(contract_rows(dr, di, M, N, win_y),
-                               win_y, win_x)
+        d = _crosspower_cuda(*args, packed_eval_operands(N, keep, win_x, dev))
+        corr = contract_rows_stacked(d, M, N, win_y, *fband.shape[:2])
+    return _centroid_on_window(corr, win_y, win_x)

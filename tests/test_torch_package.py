@@ -236,6 +236,30 @@ def test_kernel_wrappers_reject_mismatched_shapes(which):
     assert _build.LAUNCHES == before
 
 
+def test_ky_gemm_wrapper_refuses_what_it_cannot_launch(monkeypatch):
+    """Kernel (g)'s wrapper: a D whose rows are not 2M, or W^T of another
+    width, is refused before any launch; a tensor off the CPU without a
+    CUDA device raises rather than taking the plain version (meta
+    tensors)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = dict(_build.LAUNCHES)
+    f32 = torch.float32
+    M = 16
+    with pytest.raises(ValueError, match="shape"):
+        phasecorr_cuda._ky_gemm_cuda(_meta((2 * M, phasecorr_cuda.KY_WP), f32),
+                                     _meta((2 * M + 1, 9), f32), M, 3)
+    with pytest.raises(ValueError, match="shape"):
+        phasecorr_cuda._ky_gemm_cuda(_meta((2 * M, 64), f32),
+                                     _meta((2 * M, 9), f32), M, 3)
+    with pytest.raises(RuntimeError, match="no kernel for meta"):
+        phasecorr_cuda._ky_gemm_cuda(_meta((2 * M, phasecorr_cuda.KY_WP), f32),
+                                     _meta((2 * M, 9), f32), M, 3)
+    with pytest.raises(ValueError, match="win_y"):
+        phasecorr_cuda.contract_rows_stacked(_meta((2 * M, 9), f32), M, 16,
+                                             65, 1, 1)
+    assert _build.LAUNCHES == before
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -105,6 +105,165 @@ def test_crosspower_plain_matches_jax_unfused(rng):
         assert abs(float(got[1][0, b]) - (-4 + 4 * (b % 2))) < 0.1
 
 
+def test_crosspower_plain_matches_jax_fused_kernel_ragged(rng):
+    """As above at 3 tiles of 3 bands: the stacked layout's columns of
+    pair tile * NB + band hold the right (tile, band) where NB is below
+    the kernel's 4 bands an item.  Gate 1e-4."""
+    pans, bands = _tiles(rng, 3)
+    fpan, fband = _numpy_spectra(pans, bands[:, :3])
+    want = jax_fused_tiles(
+        jnp.asarray(fpan.real), jnp.asarray(fpan.imag),
+        jnp.asarray(fband.real), jnp.asarray(fband.imag),
+        PAD, M_SMALL, WIN, WIN, True,
+    )
+    got = windowed_crosspower_fused_tiles(
+        torch.from_numpy(fpan), torch.from_numpy(fband), PAD, M_SMALL, WIN,
+        WIN,
+    )
+    for g, w in zip(got, want):
+        assert g.shape == (3, 3)
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-4
+
+
+def _stack(dr, di):
+    """``D`` of (T, NB, M, wx) real and imaginary parts, built pair by
+    pair as kernel (b)'s wrapper documents it."""
+    tiles, n_bands, M, wx = dr.shape
+    d = torch.full((2 * M, tiles * n_bands * wx), float("nan"))
+    for t in range(tiles):
+        for b in range(n_bands):
+            cols = pcc.stacked_columns(t * n_bands + b, wx)
+            d[:M, cols] = dr[t, b]
+            d[M:, cols] = di[t, b]
+    return d
+
+
+@pytest.mark.parametrize("tiles,n_bands,M,win_y,wx", [
+    (2, 4, 992, 16, 33), (5, 4, 992, 16, 33), (3, 3, 256, 64, 129),
+    (7, 1, 64, 3, 7), (1, 2, 6400, 64, 9)])
+def test_contract_rows_stacked_matches_contract_rows(rng, tiles, n_bands, M,
+                                                      win_y, wx):
+    """The one-GEMM ky contraction over ``D`` equals ``contract_rows``
+    pair by pair on the same (dr, di), up to the order of the float32
+    sums (K = 2M terms: within 1e-5 of the window's largest magnitude;
+    random surfaces read 3e-7 to 6e-7), at T = 2 and at ragged T with NB = 4
+    and NB < 4; its (T, NB, 2*win_y+1, wx) result is in pair order."""
+    N = 256
+    dr = torch.from_numpy(rng.standard_normal((tiles, n_bands, M, wx))
+                          .astype(np.float32))
+    di = torch.from_numpy(rng.standard_normal((tiles, n_bands, M, wx))
+                          .astype(np.float32))
+    want = phasecorr.contract_rows(dr, di, M, N, win_y)
+    got = pcc.contract_rows_stacked(_stack(dr, di), M, N, win_y, tiles,
+                                    n_bands)
+    assert got.shape == want.shape == (tiles, n_bands, 2 * win_y + 1, wx)
+    assert got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n_tiles,n_bands", [(2, 4), (3, 3)])
+def test_stacked_contraction_meets_the_jax_gates(rng, n_tiles, n_bands):
+    """The card's route on the CPU: ``_crosspower_plain``'s ``D`` through
+    ``contract_rows_stacked`` (one GEMM, another order of float32 sums
+    than the CPU route's ``_contract_rows_plain``) and the centroid, held
+    to the gates of the tests above: <= 1e-4 against the Pallas kernel in
+    interpret mode, <= 1e-3 against the JAX unfused float32 path."""
+    pans, bands = _tiles(rng, n_tiles)
+    fpan, fband = _numpy_spectra(pans, bands[:, :n_bands])
+    M, N = PAD
+    keep = fpan.shape[-1]
+    cpu = torch.device("cpu")
+    ex_c, ex_s = phasecorr.eval_consts(N, keep, WIN, False, cpu)
+    d = pcc._crosspower_plain(
+        torch.from_numpy(fpan), torch.from_numpy(fband),
+        phasecorr.filter_response(M_SMALL, M // M_SMALL, cpu),
+        phasecorr.filter_response(N_SMALL, N // N_SMALL, cpu)[:keep],
+        ex_c, ex_s)
+    got = phasecorr._centroid_on_window(
+        pcc.contract_rows_stacked(d, M, N, WIN, n_tiles, n_bands), WIN, WIN)
+    want = jax_fused_tiles(
+        jnp.asarray(fpan.real), jnp.asarray(fpan.imag),
+        jnp.asarray(fband.real), jnp.asarray(fband.imag),
+        PAD, M_SMALL, WIN, WIN, True,
+    )
+    for g, w in zip(got, want):
+        assert g.shape == (n_tiles, n_bands)
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-4
+    for t in range(n_tiles):
+        for b in range(n_bands):
+            fbr, fbi = jpc.upsampled_band_spectrum(jnp.asarray(bands[t, b]))
+            unfused = jpc.peak_from_spectra_windowed(
+                jnp.asarray(fpan[t].real), jnp.asarray(fpan[t].imag), fbr,
+                fbi, PAD, WIN, WIN)
+            for k in range(3):
+                assert abs(float(got[k][t, b]) - float(unfused[k])) <= 1e-3
+
+
+@pytest.mark.parametrize("M,win", [(16000, 64), (4004, 64), (992, 16),
+                                   (256, 64), (64, 3)])
+def test_eval_consts_are_even_and_odd_in_the_shift(M, win):
+    """Kernel (g) sums each window row pair +-s once: the rows' evaluation
+    matrices are even (cos) and odd (sin) in the shift to the bit, and the
+    shift 0 weighs every row by exactly 1 and 0."""
+    c, s = phasecorr._eval_consts(M, M, win, True)
+    np.testing.assert_array_equal(c[:, :win][:, ::-1], c[:, win + 1:])
+    np.testing.assert_array_equal(-s[:, :win][:, ::-1], s[:, win + 1:])
+    assert (c[:, win] == 1).all() and (s[:, win] == 0).all()
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 992, 3200, 3201, 6400, 16000,
+                               16001])
+def test_ky_slices_cover_each_half_once_in_order(M):
+    """Kernel (g)'s slices of a half's M rows run in order, end to end, on
+    its 8-row stages, and their count follows M alone (5 at the scene's
+    M)."""
+    slices = pcc._ky_slices(M)
+    assert len(slices) == pcc.ky_gemm_splits(M)
+    assert slices[0][0] == 0 and slices[-1][1] == M
+    for (a0, a1), (b0, b1) in zip(slices, slices[1:]):
+        assert a1 == b0
+    assert all(k0 % pcc.KY_STAGE == 0 for k0, _ in slices)
+    if M == 16000:
+        assert len(slices) == 5
+
+
+def test_crosspower_plain_stacked_layout(rng):
+    """``_crosspower_plain``'s ``D``: (2M, T*NB*wx) float32; the columns
+    of pair tile * NB + band are what a call on that (tile, band) alone
+    gives, the real part ``Re sum_kx Cn (Ec + i Es)`` in rows 0..M-1 and
+    the imaginary part in rows M..2M-1 (checked in float64 from the same
+    bf16 operands)."""
+    M, m, n, keep, win, tiles, n_bands = 48, 12, 7, 9, 5, 3, 3
+    fpan = torch.from_numpy((rng.standard_normal((tiles, M, keep))
+                             + 1j * rng.standard_normal((tiles, M, keep)))
+                            .astype(np.complex64))
+    fband = torch.from_numpy(
+        (rng.standard_normal((tiles, n_bands, m, n))
+         + 1j * rng.standard_normal((tiles, n_bands, m, n)))
+        .astype(np.complex64))
+    hr = phasecorr.filter_response(m, M // m, torch.device("cpu"))
+    hc = phasecorr.filter_response(n, 4, torch.device("cpu"))[:keep]
+    ex_c, ex_s = phasecorr.eval_consts(16, keep, win, False,
+                                       torch.device("cpu"))
+    wx = 2 * win + 1
+    d = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
+    assert d.shape == (2 * M, tiles * n_bands * wx)
+    assert d.dtype == torch.float32 and d.is_contiguous()
+    ec, es = pcc._bf16(ex_c).double(), pcc._bf16(ex_s).double()
+    for t in range(tiles):
+        for b in range(n_bands):
+            cols = pcc.stacked_columns(t * n_bands + b, wx)
+            alone = pcc._crosspower_plain(fpan[t:t + 1], fband[t:t + 1, b:b + 1],
+                                          hr, hc, ex_c, ex_s)
+            assert torch.equal(d[:, cols], alone)
+            cr, ci = (x.double() for x in pcc.whitened_bf16(fpan[t],
+                                                            fband[t, b], hr, hc))
+            want = torch.cat((cr @ ec - ci @ es, ci @ ec + cr @ es))
+            scale = float(want.abs().max())
+            assert float((d[:, cols].double() - want).abs().max()) <= 1e-5 * scale
+
+
 def _unpack_rows(packed):
     """The dense (2*Kp, N_PAD) B that the kernel's wgmma descriptors read
     from ``packed``, in the kernel's K order (k16 step by step), and the kx
@@ -142,7 +301,7 @@ def test_packed_eval_operands_reproduce_the_plain_version(rng, keep, win):
     ex_c, ex_s = phasecorr.eval_consts(n_pad, keep, win, False,
                                        torch.device("cpu"))
     wx = 2 * win + 1
-    want_re, want_im = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
+    want = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
 
     packed = pcc.pack_eval_operands(ex_c, ex_s)
     steps = -(-keep // pcc.KX_STEP)
@@ -162,9 +321,11 @@ def test_packed_eval_operands_reproduce_the_plain_version(rng, keep, win):
         a_im = torch.where(es == 1, cr[:, kx], ci[:, kx])
         got_re = torch.matmul(a_re, b)
         got_im = torch.matmul(a_im, b)
-        scale = float(want_re[0, band].abs().max())
-        assert float((got_re[:, :wx] - want_re[0, band]).abs().max()) <= 1e-5 * scale
-        assert float((got_im[:, :wx] - want_im[0, band]).abs().max()) <= 1e-5 * scale
+        cols = pcc.stacked_columns(band, wx)
+        want_re, want_im = want[:M, cols], want[M:, cols]
+        scale = float(want_re.abs().max())
+        assert float((got_re[:, :wx] - want_re).abs().max()) <= 1e-5 * scale
+        assert float((got_im[:, :wx] - want_im).abs().max()) <= 1e-5 * scale
         # the padded window columns stay 0
         assert float(got_re[:, wx:].abs().max()) == 0.0
         assert float(got_im[:, wx:].abs().max()) == 0.0
@@ -216,13 +377,12 @@ def test_crosspower_plain_rounds_like_the_tpu_kernel(rng):
     a = pcc._crosspower_plain(fpan, fband, hr, hc, ex_c, ex_s)
     b = pcc._crosspower_plain(fpan, fband, hr, hc, pcc._bf16(ex_c),
                               pcc._bf16(ex_s))
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    assert torch.equal(a, b)
     ky = torch.arange(M) % m
     kx = torch.arange(keep) % n
     c = phasecorr.whitened_crosspower(fpan[0], fband[0, 0][ky][:, kx])
     f32 = torch.matmul(c.real, ex_c) - torch.matmul(c.imag, ex_s)
-    assert float((f32 - a[0][0, 0]).abs().max()) > 1e-4
+    assert float((f32 - a[:M, :2 * win + 1]).abs().max()) > 1e-4
 
 
 def test_upsampled_band_spectrum_matches_jax(rng):
