@@ -19,11 +19,15 @@ Per scene:
 way (RRC, registration, one kernel-(c) launch at row bound 6), and
 :class:`DualScenePipeline` runs the reference's whole sample task on one
 device: the scene, CMOS2's MSS aligned against its prestitched PAN2, and
-the two aligned rasters stitched at the seam (:func:`stitch_mss_seam`).  The
-registration is split into its sampling geometry (:func:`register_geometry`)
-and a core on gathered tiles (:func:`register_tiles`), so the streamed scene
-(``models/scene_stream``) uploads only the sampled rows and still gets the
-resident route's estimates bit for bit.
+the two aligned rasters stitched at the seam (:func:`stitch_mss_seam`).
+
+The estimate is written once, for every route: :func:`register_rows` and
+:func:`stt_rows` take their rows from a row source -- the resident strip
+(:class:`StripRows`, views), the strip file (``models/scene_stream``,
+uploads of the sampled rows) or the line-sharded strip
+(``parallel/sharded_scene``, ``LineSharded.fetch``) -- and split the tiles
+and windows over the sources' device slots, so every route cuts the same
+tiles and gets the resident route's estimates bit for bit.
 
 The JAX package's TPU workarounds are not ported: cuFFT replaces the DFT
 done as matrix multiplies (``ops/fft_mxu``) and float64 the double-word
@@ -32,6 +36,7 @@ float32 fit (``ops/ddf32``).
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import torch
@@ -82,16 +87,20 @@ def _fit_poly(cx: torch.Tensor, y: torch.Tensor, deg: int,
     return (c * scale ** k).to(torch.float32)
 
 
-def _section_tiles(strip, params, row0, rows, cols, slices):
-    """The ``slices`` (rows, cols) tiles of one section's row block of a
-    (..., L, W) strip, RRC'd when ``params`` is given, as float32
-    (slices, ..., rows, cols)."""
-    blk = strip[..., row0:row0 + rows, :slices * cols]
+def _section_tiles(blk, params, cols):
+    """The tiles of ``cols`` columns of a (..., rows, n * cols) row block,
+    RRC'd when ``params`` (its columns' ``(k, b)``) is given, as float32
+    (n, ..., rows, cols)."""
     if params is not None:
-        k, b = params
-        blk = rrc_apply(blk, k[..., :slices * cols], b[..., :slices * cols])
-    t = blk.to(torch.float32).reshape(*blk.shape[:-1], slices, cols)
+        blk = rrc_apply(blk, *params)
+    t = blk.to(torch.float32).reshape(*blk.shape[:-1], -1, cols)
     return t.movedim(-2, 0)
+
+
+def _cols(params, c0: int, c1: int):
+    """Columns ``[c0, c1)`` of RRC parameters ``(k, b)`` (None stays
+    None)."""
+    return None if params is None else tuple(v[..., c0:c1] for v in params)
 
 
 @dataclass(frozen=True)
@@ -136,30 +145,64 @@ def register_geometry(lines_pan: int, width: int, slices: int = 10,
                        cols // MSS_BANDS, corr_rows // MSS_BANDS)
 
 
-def section_tiles(geom: RegGeometry, pan_blk, band_blk,
-                  pan_params: RRCParams | None = None,
-                  mss_params: RRCParams | None = None):
-    """One section's tiles from its row blocks: ``pan_blk`` (>= corr_rows,
-    >= slices * cols) and ``band_blk`` (4, >= brows, >= slices * bcols)
-    uint16, starting at the section's first row, RRC'd when the params are
-    given.  Returns float32 (slices, corr_rows, cols) and (slices, 4,
-    brows, bcols)."""
-    return (
-        _section_tiles(pan_blk, pan_params, 0, geom.corr_rows, geom.cols,
-                       geom.slices),
-        _section_tiles(band_blk, mss_params, 0, geom.brows, geom.bcols,
-                       geom.slices),
-    )
+def tile_blocks(n_tiles: int, n_slots: int) -> list[tuple[int, int]]:
+    """Contiguous blocks of a tile axis, one a device slot, ``ceil(n_tiles /
+    n_slots)`` tiles each, the last ones shorter or empty: JAX rounds the
+    axis up to a multiple of the device count (``_pad_tile_axis``) and
+    gives device ``d`` tiles ``[d * per, (d + 1) * per)``; the padded tiles
+    are not computed here, so none can enter a fit."""
+    per = -(-n_tiles // n_slots)
+    return [(min(d * per, n_tiles), min((d + 1) * per, n_tiles))
+            for d in range(n_slots)]
+
+
+def tile_runs(blocks, slices):
+    """``(slot, section, first slice, end slice)`` of each run of tiles of
+    one section in the contiguous tile blocks (``blocks[d]``: slot ``d``'s
+    ``[t0, t1)``), in block order.  One slot gets one run a section, over
+    every slice, in section order."""
+    runs = []
+    for d, (t0, t1) in enumerate(blocks):
+        for sec in range(t0 // slices, -(-t1 // slices)):
+            runs.append((d, sec, max(t0 - sec * slices, 0),
+                         min(t1 - sec * slices, slices)))
+    return runs
+
+
+class StripRows:
+    """A strip as a row source, the contract of ``parallel.mesh.
+    LineSharded.fetch``: ``fetch(plan)`` yields, for each ``(slot, a, b,
+    (c0, c1))`` entry in plan order, rows ``[a, b)`` (the second-to-last
+    axis) and columns ``[c0, c1)`` of ``strip``; of a tensor these are
+    views, no copy."""
+
+    def __init__(self, strip):
+        self.strip = strip
+        self.shape = tuple(strip.shape)
+
+    def fetch(self, plan):
+        return (self.strip[..., a:b, c0:c1]
+                for _slot, a, b, (c0, c1) in plan)
+
+
+def _one_block(outs):
+    """The statistics of the only block of a one-slot plan, as they are."""
+    (stats,) = outs
+    return stats
+
+
+def _first(devices):
+    return next(d for d in devices if d is not None)
 
 
 def correlate_tiles(geom: RegGeometry, pan_tiles, band_tiles,
                     win: tuple[int, int] = (64, 64)):
-    """The correlation half of :func:`register_tiles`: lists of tile
+    """The correlation of one slot's block of tiles: lists of tile
     blocks (float32 (n, corr_rows, cols) and (n, 4, brows, bcols) each),
     emptied as they are consumed so the tiles' memory is freed before
     kernel (b) runs; one batched rfft2 of the PAN tiles, one fft2 of the
     band tiles and one kernel-(b) launch.  -> ``(dx, dy, rs)``, each (T,
-    4) float32.  The line mesh runs it on each device's block of tiles."""
+    4) float32."""
     pad = (geom.corr_rows, geom.cols)
     win = phasecorr.clamp_win(win, pad)
     dev = pan_tiles[0].device
@@ -176,7 +219,7 @@ def correlate_tiles(geom: RegGeometry, pan_tiles, band_tiles,
 
 def fit_tiles(geom: RegGeometry, dx, dy, rs,
               threshold: float = IBCV_DEF_THRESHOLD):
-    """The fit half of :func:`register_tiles`: the (T, 4) statistics of
+    """The fit of the registration: the (T, 4) statistics of
     every (section, slice) tile in section order -> ``(coeffs,
     n_valid)``."""
     with span("oip.register.fit", dx.device):
@@ -191,17 +234,55 @@ def fit_tiles(geom: RegGeometry, dx, dy, rs,
     return [(coeff_x[b], coeff_y[b]) for b in range(MSS_BANDS)], n_valid
 
 
-def register_tiles(geom: RegGeometry, pan_tiles, band_tiles,
-                   win: tuple[int, int] = (64, 64),
-                   threshold: float = IBCV_DEF_THRESHOLD):
-    """The core of :func:`register_fast` on already gathered tiles: lists
-    of every section's :func:`section_tiles`, in section order (float32
-    (slices, corr_rows, cols) and (slices, 4, brows, bcols) each), through
-    :func:`correlate_tiles` and :func:`fit_tiles`; returns ``(coeffs,
-    n_valid)`` as :func:`register_fast`.  Callers that gather the same
-    tiles in the same order get bit-identical estimates."""
-    dx, dy, rs = correlate_tiles(geom, pan_tiles, band_tiles, win)
-    return fit_tiles(geom, dx, dy, rs, threshold)
+def register_rows(geom: RegGeometry, pan, bands, devices,
+                  rrc: dict | None = None, gather=_one_block,
+                  win: tuple[int, int] = (64, 64),
+                  threshold: float = IBCV_DEF_THRESHOLD):
+    """The registration on row sources (:class:`StripRows`, a strip file's
+    uploads, a ``parallel.mesh.LineSharded``): ``pan`` (L, W) and ``bands``
+    (4, L/4, W/4) uint16, RAW where ``rrc[device]`` gives their ``(k, b)``
+    (``(pan params | None, band params | None)``) -- each tile is then RRC'd
+    as it is cut -- or already corrected.
+
+    The (section, slice) tiles are split over the ``devices`` slots in
+    contiguous blocks (:func:`tile_blocks`; a slot of None is another
+    process's and is skipped).  Each block is cut from the rows its slot
+    fetches and correlated on its device (:func:`correlate_tiles`) before
+    the next block's rows are taken, so one block's tiles are alive at a
+    time.  ``gather`` takes the blocks' (dx, dy, rs) to one (T, 4) each in
+    tile order, and :func:`fit_tiles` fits them.  -> ``(cx (4, 2), cy (4,
+    3), n_valid (4,))``.  Plans that cut the same tiles give bit-identical
+    estimates wherever the FFTs' bits do not depend on their batch."""
+    runs = tile_runs(tile_blocks(geom.n_sections * geom.slices,
+                                 len(devices)), geom.slices)
+    pan_blks = pan.fetch([
+        (d, geom.row0(sec), geom.row0(sec) + geom.corr_rows,
+         (i0 * geom.cols, i1 * geom.cols)) for d, sec, i0, i1 in runs])
+    band_blks = bands.fetch([
+        (d, geom.row0(sec) // MSS_BANDS,
+         geom.row0(sec) // MSS_BANDS + geom.brows,
+         (i0 * geom.bcols, i1 * geom.bcols)) for d, sec, i0, i1 in runs])
+    stats = []
+    for d, block in itertools.groupby(runs, key=lambda r: r[0]):
+        dev = devices[d]
+        if dev is None:
+            for _run in block:
+                next(pan_blks), next(band_blks)
+            continue
+        pp, bp = rrc[dev] if rrc else (None, None)
+        pan_tiles, band_tiles = [], []
+        with span("oip.register.tiles", dev):
+            for _d, _sec, i0, i1 in block:
+                pan_tiles.append(_section_tiles(
+                    next(pan_blks), _cols(pp, i0 * geom.cols, i1 * geom.cols),
+                    geom.cols))
+                band_tiles.append(_section_tiles(
+                    next(band_blks),
+                    _cols(bp, i0 * geom.bcols, i1 * geom.bcols), geom.bcols))
+        stats.append(correlate_tiles(geom, pan_tiles, band_tiles, win))
+    coeffs, n_valid = fit_tiles(geom, *gather(stats), threshold)
+    return (torch.stack([c[0] for c in coeffs]),
+            torch.stack([c[1] for c in coeffs]), n_valid)
 
 
 def register_fast(
@@ -224,20 +305,14 @@ def register_fast(
     float32 fitted over samples with response >= ``threshold``, and the
     (4,) valid counts (check with :func:`check_registration_valid`).
 
-    The geometry is :func:`register_geometry`; all n_sections x slices
-    tiles go through :func:`register_tiles`.
+    The geometry is :func:`register_geometry`; the tiles go through
+    :func:`register_rows` on one device.
     """
     geom = register_geometry(pan.shape[0], pan.shape[1], slices, n_sections)
-    pan_tiles, band_tiles = [], []
-    with span("oip.register.tiles", pan.device):
-        for sec in range(geom.n_sections):
-            row0 = geom.row0(sec)
-            p, b = section_tiles(geom, pan[row0:],
-                                 mss[:, row0 // MSS_BANDS:], pan_params,
-                                 mss_params)
-            pan_tiles.append(p)
-            band_tiles.append(b)
-    return register_tiles(geom, pan_tiles, band_tiles, win, threshold)
+    cx, cy, n_valid = register_rows(
+        geom, StripRows(pan), StripRows(mss), [pan.device],
+        {pan.device: (pan_params, mss_params)}, win=win, threshold=threshold)
+    return list(zip(cx, cy)), n_valid
 
 
 def check_registration_valid(n_valid) -> None:
@@ -305,6 +380,40 @@ def stt_average(dx, dy, rs, threshold: float = IBCV_DEF_THRESHOLD,
     )
 
 
+def stt_rows(pan1, pan2, devices, sections: int = 10,
+             line_per_section: int | None = None, overlap_cols: int = 200,
+             edge_cols: int = 0, threshold: float = IBCV_DEF_THRESHOLD,
+             max_delta_y: float = 0.0, win: tuple[int, int] = (64, 64),
+             gather=_one_block):
+    """The stt estimate on row sources (as :func:`register_rows` takes
+    them): ``sections`` windows (:func:`stt_geometry`) of PAN1's right
+    overlap strip and PAN2's left one, a contiguous block of sections on
+    each of the ``devices`` slots, each window cast to float32 and the
+    block's windows stacked; their peaks (:func:`stt_peaks`), gathered in
+    section order by ``gather``, averaged (:func:`stt_average`).  -> as
+    :func:`stt_estimate_fast`."""
+    lines, width = pan1.shape[-2:]
+    lps, offs = stt_geometry(lines, sections, line_per_section)
+    plan = [(d, o, o + lps)
+            for d, (s0, s1) in enumerate(tile_blocks(sections, len(devices)))
+            for o in offs[s0:s1]]
+    with span("oip.stt", _first(devices)):
+        win1, win2 = (strip.fetch([(d, a, b, cols) for d, a, b in plan])
+                      for strip, cols in (
+                          (pan1, (width - overlap_cols, width - edge_cols)),
+                          (pan2, (edge_cols, overlap_cols))))
+        peaks = []
+        for d, group in itertools.groupby(zip(plan, win1, win2),
+                                          key=lambda g: g[0][0]):
+            group = list(group)
+            if devices[d] is None:
+                continue
+            t1, t2 = (torch.stack([g[k].to(torch.float32) for g in group])
+                      for k in (1, 2))
+            peaks.append(stt_peaks(t1, t2, win))
+        return stt_average(*gather(peaks), threshold, max_delta_y)
+
+
 def stt_estimate_fast(
     pan1: torch.Tensor,
     pan2: torch.Tensor,
@@ -319,25 +428,15 @@ def stt_estimate_fast(
     """Stitching-parameter estimation (CalcSttParameters,
     stitcher.h:148-201): phase-correlate ``sections`` sampled windows of
     PAN1's right overlap strip against PAN2's left overlap strip
-    (:func:`stt_geometry`, :func:`stt_peaks`), and average the deltas over
-    valid samples (:func:`stt_average`).
+    (:func:`stt_rows` on one device), and average the deltas over valid
+    samples (:func:`stt_average`).
 
     Returns (delta_x, delta_y, response, n_valid) as 0-d tensors;
     ``n_valid == 0`` is the reference's "No valid delta value found"
     error (:func:`check_stt_valid`)."""
-    lines, width = pan1.shape
-    lps, offs = stt_geometry(lines, sections, line_per_section)
-    ow = overlap_cols - edge_cols
-    c1 = width - overlap_cols
-    with span("oip.stt", pan1.device):
-        t1 = torch.stack(
-            [pan1[o:o + lps, c1:c1 + ow].to(torch.float32) for o in offs]
-        )
-        t2 = torch.stack(
-            [pan2[o:o + lps, edge_cols:edge_cols + ow].to(torch.float32)
-             for o in offs]
-        )
-        return stt_average(*stt_peaks(t1, t2, win), threshold, max_delta_y)
+    return stt_rows(StripRows(pan1), StripRows(pan2), [pan1.device],
+                    sections, line_per_section, overlap_cols, edge_cols,
+                    threshold, max_delta_y, win)
 
 
 def check_stt_valid(n_valid) -> None:
@@ -347,39 +446,6 @@ def check_stt_valid(n_valid) -> None:
         raise RuntimeError(
             "No valid delta value found for stitching parameter calculating"
         )
-
-
-def make_scene_estimate(
-    slices: int = 10,
-    n_sections: int | None = None,
-    stt_sections: int = 10,
-    stt_lines: int | None = None,
-    overlap_cols: int = 200,
-    stt_threshold: float = IBCV_DEF_THRESHOLD,
-    stt_max_delta_y: float = 0.0,
-    threshold: float = IBCV_DEF_THRESHOLD,
-):
-    """The scene's parameter estimation over its minimal inputs:
-    ``estimate(pan1, pan2_left, mss, pan1_params, mss_params)`` where
-    ``pan2_left`` is PAN2's left ``overlap_cols`` columns (all the stt
-    sampling reads) and both strips stay RAW (registration RRCs only its
-    sampled tiles).  Returns ``(cx (4, 2), cy (4, 3), n_valid (4,),
-    raw_dx, raw_dy, n_stt)``."""
-
-    def estimate(pan1, pan2_left, mss, pan1_params, mss_params):
-        coeffs, n_valid = register_fast(
-            pan1, mss, slices, n_sections, threshold=threshold,
-            pan_params=pan1_params, mss_params=mss_params,
-        )
-        raw_dx, raw_dy, _resp, n_stt = stt_estimate_fast(
-            pan1, pan2_left, stt_sections, stt_lines, overlap_cols,
-            threshold=stt_threshold, max_delta_y=stt_max_delta_y,
-        )
-        cx = torch.stack([c[0] for c in coeffs])
-        cy = torch.stack([c[1] for c in coeffs])
-        return cx, cy, n_valid, raw_dx, raw_dy, n_stt
-
-    return estimate
 
 
 class ScenePipeline(nn.Module):
@@ -432,25 +498,38 @@ class ScenePipeline(nn.Module):
         self.slices = slices
         self.n_sections = n_sections
         self.threshold = threshold
-        # stt_estimate_fast's settings after the strips and overlap_cols
-        self.stt_kw = dict(
-            sections=stt_sections, line_per_section=stt_lines,
-            threshold=stt_threshold, max_delta_y=stt_max_delta_y,
-        )
-        self._estimate = make_scene_estimate(
-            slices=slices, n_sections=n_sections, stt_sections=stt_sections,
-            stt_lines=stt_lines, overlap_cols=overlap_cols,
-            stt_threshold=stt_threshold, stt_max_delta_y=stt_max_delta_y,
-            threshold=threshold,
-        )
+        self.stt_sections = stt_sections
+        self.stt_lines = stt_lines
+        self.stt_threshold = stt_threshold
+        self.stt_max_delta_y = stt_max_delta_y
 
     def estimate(self, pan1, pan2, mss):
         """-> (cx (4, 2), cy (4, 3), n_valid (4,), raw_dx, raw_dy, n_stt)."""
-        with span("oip.estimate", pan1.device):
-            return self._estimate(
-                pan1, pan2[:, :self.overlap_cols], mss,
-                (self.pan1_k, self.pan1_b), (self.mss_k, self.mss_b),
-            )
+        return self.estimate_rows(StripRows(pan1), StripRows(pan2),
+                                  StripRows(mss), [pan1.device])
+
+    def estimate_rows(self, pan1, pan2, mss, devices, gather=_one_block,
+                      copies=None):
+        """:meth:`estimate` on row sources of the RAW strips, over the
+        ``devices`` slots (:func:`register_rows`' contract): the
+        registration, its tiles RRC'd as they are cut with the buffers of
+        ``copies[device]`` (this module's copy on each device; by default
+        this module), then the stt estimate on the overlap windows, both
+        gathered by ``gather``."""
+        copies = copies or {d: self for d in devices}
+        rrc = {d: ((m.pan1_k, m.pan1_b), (m.mss_k, m.mss_b))
+               for d, m in copies.items()}
+        with span("oip.estimate", _first(devices)):
+            geom = register_geometry(*pan1.shape[-2:], self.slices,
+                                     self.n_sections)
+            cx, cy, n_valid = register_rows(
+                geom, pan1, mss, devices, rrc, gather,
+                threshold=self.threshold)
+            raw_dx, raw_dy, _resp, n_stt = stt_rows(
+                pan1, pan2, devices, self.stt_sections, self.stt_lines,
+                self.overlap_cols, threshold=self.stt_threshold,
+                max_delta_y=self.stt_max_delta_y, gather=gather)
+        return cx, cy, n_valid, raw_dx, raw_dy, n_stt
 
     def clamp_stt(self, raw_dx, raw_dy) -> tuple[float, float]:
         """The stt deltas clamped to the resample's supported band (each
@@ -544,13 +623,22 @@ class MssAlign(nn.Module):
         """``pan_c`` (L, W) corrected PAN, ``mss`` (4, L/4, W/4) RAW bands
         -> (aligned (L/4, W/4, 4), n_valid (4,), (cx (4, 2), cy (4, 3)))."""
         mss_c = rrc_apply(mss, self.mss_k, self.mss_b)
-        coeffs, n_valid = register_fast(
-            pan_c, mss_c, self.slices, self.n_sections,
-            threshold=self.threshold,
-        )
-        cx = torch.stack([c[0] for c in coeffs])
-        cy = torch.stack([c[1] for c in coeffs])
+        cx, cy, n_valid = self.register(StripRows(pan_c), StripRows(mss_c),
+                                        [pan_c.device])
         return self.remap(mss_c, cx, cy), n_valid, (cx, cy)
+
+    def register(self, pan_c, mss, devices, gather=_one_block,
+                 raw: bool = False):
+        """The registration of the bands against the corrected PAN, row
+        sources over the ``devices`` slots (:func:`register_rows`); with
+        ``raw`` the bands are RAW and each band tile is RRC'd as it is
+        cut.  -> (cx (4, 2), cy (4, 3), n_valid (4,))."""
+        geom = register_geometry(*pan_c.shape[-2:], self.slices,
+                                 self.n_sections)
+        rrc = ({d: (None, (self.mss_k, self.mss_b)) for d in devices}
+               if raw else None)
+        return register_rows(geom, pan_c, mss, devices, rrc, gather,
+                             threshold=self.threshold)
 
 
 def mss_fold_half(fold_cols: int) -> int:
@@ -608,11 +696,6 @@ class DualScenePipeline(nn.Module):
             dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
         return (aligned, stitched, aligned2, stitched_mss, n_valid, n_stt,
                 n_valid2, (cx, cy, dxs, dys, raw_dx, raw_dy), fit2)
-
-
-def make_mss_align(mss_params, **cfg) -> MssAlign:
-    """The CMOS2 MSS align step as one :class:`MssAlign`."""
-    return MssAlign(mss_params, **cfg)
 
 
 def make_device_pipeline(pan1_params, pan2_params, mss_params, **cfg):

@@ -39,10 +39,10 @@ from ..parallel.mesh import LINE_AXIS, LineMesh, LineSharded, resolve_mesh
 from ..utils.logging import device_profile, logw, olog, stage, to_host
 
 from .device_pipeline import (
+    MssAlign,
     ScenePipeline,
     check_registration_valid,
     check_stt_valid,
-    make_mss_align,
     mss_fold_half,
     stitch_mss_seam,
 )
@@ -309,7 +309,7 @@ def _run_scene(
     # two aligned rasters (sample-task.sh steps 3.2 + 4)
     ms2 = raw_io.RawStrip(mss2_file, pixels_per_line)
     raw_io.check_pan_mss_sizes(p2, ms2)
-    align = ShardedMssAlign(make_mss_align(
+    align = ShardedMssAlign(MssAlign(
         load_band_rrc(rrc_mss2_files, band_px), slices=slices,
         n_sections=sections, threshold=threshold,
     ), mesh)

@@ -10,12 +10,11 @@ read only sampled windows, and every whole-strip stage (RRC, the alignment
 and prestitch resamples, the seam concat) is line-local up to a few halo
 rows.
 
-Phase 1, :func:`estimate_streamed`: upload the registration's sampled row
-blocks (at most 5 x 16000 PAN lines and their band rows) and run the
-resident registration's core on the same tiles in the same order
-(:func:`~.device_pipeline.register_tiles`), then the stt estimate on PAN1's
-right and PAN2's left ``overlap_cols`` columns: the estimates are the
-resident route's, bit for bit.
+Phase 1, :func:`estimate_streamed`: the resident route's estimate
+(:meth:`~.device_pipeline.ScenePipeline.estimate_rows`) with the strip
+files as its row source, which uploads only the sampled rows (at most 5 x
+16000 PAN lines of tiles and their band rows, and the stt's overlap
+windows): the estimates are the resident route's, bit for bit.
 
 Phase 2, :func:`transform_streamed`: sections of ``section_rows`` PAN
 lines, each with halo rows, go through
@@ -65,13 +64,9 @@ from ..utils.logging import device_profile, olog, stage, to_host
 from .device_pipeline import (
     MssAlign,
     ScenePipeline,
+    StripRows,
     check_registration_valid,
     check_stt_valid,
-    make_mss_align,
-    register_geometry,
-    register_tiles,
-    section_tiles,
-    stt_estimate_fast,
 )
 from .scene import (
     check_tiff_output,
@@ -100,48 +95,29 @@ def _upload(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def register_streamed(pan: RawStrip, mss: RawStrip, slices, n_sections,
-                      pan_params, mss_params, threshold, device):
-    """:func:`~.device_pipeline.register_fast` on RAW strip files: only
-    the sampled row blocks go to ``device``.  -> (coeffs, n_valid)."""
-    geom = register_geometry(pan.lines, pan.pixels_per_line, slices,
-                             n_sections)
-    pan_tiles, band_tiles = [], []
-    for sec in range(geom.n_sections):
-        row0 = geom.row0(sec)
-        br0 = row0 // MSS_BANDS
-        p, b = section_tiles(
-            geom, _upload(pan._mm[row0:row0 + geom.corr_rows], device),
-            _upload(band_rows(mss, br0, br0 + geom.brows), device),
-            pan_params, mss_params,
-        )
-        pan_tiles.append(p)
-        band_tiles.append(b)
-    return register_tiles(geom, pan_tiles, band_tiles, threshold=threshold)
+class _FileRows(StripRows):
+    """A RAW strip file as a row source (its band rows with ``bands``):
+    each plan entry's rows uploaded to ``device`` as they are taken, so the
+    host holds one entry's rows at a time."""
 
+    def __init__(self, strip: RawStrip, device: torch.device,
+                 bands: bool = False):
+        super().__init__(band_rows(strip, 0, strip.lines) if bands
+                         else strip._mm)
+        self.device = device
 
-def _stack_coeffs(coeffs):
-    return (torch.stack([c[0] for c in coeffs]),
-            torch.stack([c[1] for c in coeffs]))
+    def fetch(self, plan):
+        return (_upload(v, self.device) for v in super().fetch(plan))
 
 
 def estimate_streamed(pipe: ScenePipeline, p1: RawStrip, p2: RawStrip,
                       ms: RawStrip, device):
     """Phase 1 on the strip files: -> ``(cx (4, 2), cy (4, 3), n_valid (4,),
     raw_dx, raw_dy, n_stt)``, bit-identical to ``pipe.estimate`` on the
-    resident strips."""
-    coeffs, n_valid = register_streamed(
-        p1, ms, pipe.slices, pipe.n_sections, (pipe.pan1_k, pipe.pan1_b),
-        (pipe.mss_k, pipe.mss_b), pipe.threshold, device,
-    )
-    ov = pipe.overlap_cols
-    # the stt sampling reads PAN1's right and PAN2's left overlap columns
-    # only: the same windows of narrow strips (column 0 = the overlap's)
-    raw_dx, raw_dy, _resp, n_stt = stt_estimate_fast(
-        _upload(p1._mm[:, p1.pixels_per_line - ov:], device),
-        _upload(p2._mm[:, :ov], device), overlap_cols=ov, **pipe.stt_kw,
-    )
-    return (*_stack_coeffs(coeffs), n_valid, raw_dx, raw_dy, n_stt)
+    resident strips (only the sampled rows go to ``device``)."""
+    dev = torch.device(device)
+    return pipe.estimate_rows(_FileRows(p1, dev), _FileRows(p2, dev),
+                              _FileRows(ms, dev, bands=True), [dev])
 
 
 def estimate_mss2_streamed(align: MssAlign, pan_c: RawStrip,
@@ -149,11 +125,9 @@ def estimate_mss2_streamed(align: MssAlign, pan_c: RawStrip,
     """MSS2's registration against the corrected PAN2 file (the PRESTT
     strip): -> ``(cx, cy, n_valid)``, bit-identical to :class:`MssAlign`'s
     on the resident rasters (the band tiles are RRC'd as they are cut)."""
-    coeffs, n_valid = register_streamed(
-        pan_c, ms2, align.slices, align.n_sections, None,
-        (align.mss_k, align.mss_b), align.threshold, device,
-    )
-    return (*_stack_coeffs(coeffs), n_valid)
+    dev = torch.device(device)
+    return align.register(_FileRows(pan_c, dev),
+                          _FileRows(ms2, dev, bands=True), [dev], raw=True)
 
 
 def _check_section_rows(section_rows: int) -> None:
@@ -442,7 +416,7 @@ def _run_scene_streamed(
     # ---- CMOS2 MSS against the prestitched PAN2 (sample-task steps 3.2+4)
     ms2 = raw_io.RawStrip(mss2_file, pixels_per_line)
     raw_io.check_pan_mss_sizes(p2, ms2)
-    align = make_mss_align(
+    align = MssAlign(
         load_band_rrc(rrc_mss2_files, band_px), slices=slices,
         n_sections=sections, threshold=threshold,
     ).to(dev)

@@ -44,6 +44,7 @@ from ..constants import (
     IBCV_DEF_THRESHOLD,
     MSS_BANDS,
 )
+from ..models.device_pipeline import tile_blocks, tile_runs
 from ..ops import phasecorr, polyfit, resample
 from ..ops.rrc import rrc_apply
 from .distributed import all_gather_list
@@ -98,14 +99,6 @@ def as_line_sharded(mesh: LineMesh, x, rows_axis: int = 0,
             raise ValueError(f"a raster sharded over {x.mesh}, not {mesh}")
         return x
     return ingest_line_sharded(mesh, x, rows_axis, unit)
-
-
-def tile_blocks(n_tiles: int, n_devices: int) -> list[tuple[int, int]]:
-    """Contiguous blocks of a tile axis, one a device: JAX rounds the axis
-    up to a multiple of the device count (``_pad_tile_axis``) and gives
-    device ``d`` tiles ``[d * per, (d + 1) * per)``; the padded tiles are
-    not computed here, so none can enter a fit."""
-    return shard_bounds(n_tiles, n_devices)
 
 
 def rrc_sharded(x: LineSharded, k, b) -> LineSharded:
@@ -163,18 +156,6 @@ def remap_band_dynamic(band: LineSharded, coeff_x, coeff_y,
 def auto_sections(lines_pan: int) -> int:
     """Largest reference-legal section count <= the default 5."""
     return max(1, min(IBCV_DEF_SECTIONS, lines_pan // CORRELATION_LINES))
-
-
-def tile_runs(blocks, slices):
-    """``(device, section, first slice, end slice)`` of each run of tiles
-    of one section in the contiguous tile blocks (``blocks[d]``: device
-    ``d``'s ``[t0, t1)``), in block order."""
-    runs = []
-    for d, (t0, t1) in enumerate(blocks):
-        for sec in range(t0 // slices, -(-t1 // slices)):
-            runs.append((d, sec, max(t0 - sec * slices, 0),
-                         min(t1 - sec * slices, slices)))
-    return runs
 
 
 def _correlate_file_tiles(pan_c: LineSharded, mss_c: LineSharded, r0s, br0s,

@@ -3,14 +3,13 @@
 Counterpart of ``opticalimageprocessor_tpu/parallel/sharded_scene.py``,
 with the port's single-device modules doing the per-device work:
 
-* estimate: the registration tiles are cut from the line shards, RRC'd as
-  they are cut (kernel (a)), and spread over the devices in contiguous
-  blocks of tiles (JAX's tile axis); each block goes through
-  ``device_pipeline.correlate_tiles`` on its device (cuFFT and kernel
-  (b)), the (dx, dy, response) statistics are gathered in tile order to
-  the first device of every process and fitted there (``fit_tiles``), so
-  the estimates are replicated; the stt windows are spread the same way
-  and averaged alike (``stt_peaks``, ``stt_average``);
+* estimate: the resident route's own (``ScenePipeline.estimate_rows``,
+  ``MssAlign.register``) with the line-sharded strips as its row source:
+  the registration tiles and the stt windows are spread over the devices
+  in contiguous blocks (JAX's tile axis), cut from the shards that hold
+  their rows, and each device's statistics are gathered in tile order to
+  the first device of every process (:func:`_gather_to_first`) and fitted
+  or averaged there, so the estimates are replicated;
 * transform: every shard, with its neighbours' halo rows copied onto its
   device, goes through ``ScenePipeline.transform`` (kernels (a), (c) at
   row bound 3, (d)) or ``MssAlign.remap`` (kernel (c) at row bound 6), and
@@ -34,28 +33,18 @@ cuFFT may choose other plans for other batch sizes.
 from __future__ import annotations
 
 import copy
-import itertools
+import functools
 
 import torch
 
 from ..constants import MSS_BANDS
-from ..models.device_pipeline import (
-    MssAlign,
-    ScenePipeline,
-    _section_tiles,
-    correlate_tiles,
-    fit_tiles,
-    register_geometry,
-    stt_average,
-    stt_geometry,
-    stt_peaks,
-)
+from ..models.device_pipeline import MssAlign, ScenePipeline
 from ..ops.rrc import rrc_apply
 from ..utils.logging import to_host
 from .distributed import all_gather_list
 from .halo import clipped_halo
 from .mesh import LineMesh, LineSharded
-from .sharded import as_line_sharded, tile_blocks, tile_runs
+from .sharded import as_line_sharded
 
 
 def _per_device(module, mesh: LineMesh) -> dict:
@@ -75,84 +64,6 @@ def _gather_to_first(mesh: LineMesh, outs: list) -> tuple:
                  for k in range(len(outs[0])))
 
 
-def correlate_sharded(geom, pan: LineSharded, mss: LineSharded,
-                      params: dict | None = None, win=(64, 64)):
-    """Registration statistics of line-sharded strips: ``pan`` (L, W) and
-    ``mss`` (4, L/4, W/4), RAW when ``params`` (``{device: (pan_k, pan_b,
-    mss_k, mss_b)}``) is given -- each tile is then RRC'd as it is cut --
-    or already corrected.  Device ``d`` takes tiles ``tile_blocks(T,
-    N)[d]`` (section-major, slice-minor), cut from the shards that hold
-    their rows.  -> (dx, dy, rs), each (T, 4), on this process's first
-    device (every process's)."""
-    mesh = pan.mesh
-    runs = tile_runs(tile_blocks(geom.n_sections * geom.slices, len(mesh)),
-                      geom.slices)
-    pan_blks = pan.fetch([
-        (d, geom.row0(sec), geom.row0(sec) + geom.corr_rows,
-         (i0 * geom.cols, i1 * geom.cols)) for d, sec, i0, i1 in runs])
-    band_blks = mss.fetch([
-        (d, geom.row0(sec) // MSS_BANDS,
-         geom.row0(sec) // MSS_BANDS + geom.brows,
-         (i0 * geom.cols // MSS_BANDS, i1 * geom.cols // MSS_BANDS))
-        for d, sec, i0, i1 in runs])
-    outs, pan_tiles, band_tiles = [], [], []
-    # the runs come device by device; a block is correlated before the
-    # next block's rows are fetched (one process: copied as taken), so
-    # one block's tiles are alive at a time (next(), not a zip, which would
-    # keep an earlier run's rows in its result tuple)
-    for k, (d, _sec, i0, i1) in enumerate(runs):
-        pan_blk, band_blk = next(pan_blks), next(band_blks)
-        dev = mesh.devices[d]
-        if dev is not None:
-            c0, c1 = i0 * geom.cols, i1 * geom.cols
-            pp = mp = None
-            if params is not None:
-                pk, pb, mk, mb = params[dev]
-                pp = (pk[c0:c1], pb[c0:c1])
-                mp = (mk[:, c0 // MSS_BANDS:c1 // MSS_BANDS],
-                      mb[:, c0 // MSS_BANDS:c1 // MSS_BANDS])
-            pan_tiles.append(_section_tiles(
-                pan_blk, pp, 0, geom.corr_rows, geom.cols, i1 - i0))
-            band_tiles.append(_section_tiles(
-                band_blk, mp, 0, geom.brows, geom.bcols, i1 - i0))
-        if pan_tiles and (k + 1 == len(runs) or runs[k + 1][0] != d):
-            outs.append(correlate_tiles(geom, pan_tiles, band_tiles, win))
-            pan_tiles, band_tiles = [], []
-    return _gather_to_first(mesh, outs)
-
-
-def stt_sharded(pan1: LineSharded, pan2: LineSharded, sections: int = 10,
-                line_per_section: int | None = None, overlap_cols: int = 200,
-                edge_cols: int = 0, threshold: float = 0.4,
-                max_delta_y: float = 0.0, win=(64, 64)):
-    """``device_pipeline.stt_estimate_fast`` on line-sharded strips: the
-    overlap windows of a contiguous block of sections on each device, the
-    peaks gathered to the first device of every process and averaged
-    there.  -> (delta_x, delta_y, response, n_valid) 0-d tensors."""
-    mesh = pan1.mesh
-    width = pan1.shape[1]
-    lps, offs = stt_geometry(pan1.rows, sections, line_per_section)
-    ow = overlap_cols - edge_cols
-    c1 = width - overlap_cols
-    plan = [(d, o, o + lps)
-            for d, (s0, s1) in enumerate(tile_blocks(sections, len(mesh)))
-            for o in offs[s0:s1]]
-    win1, win2 = (strip.fetch([(d, a, b, cols) for d, a, b in plan])
-                  for strip, cols in ((pan1, (c1, c1 + ow)),
-                                      (pan2, (edge_cols, edge_cols + ow))))
-    outs = []
-    for d, group in itertools.groupby(zip(plan, win1, win2),
-                                      key=lambda g: g[0][0]):
-        group = list(group)
-        if mesh.devices[d] is None:
-            continue
-        t1, t2 = (torch.stack([g[k] for g in group]).to(torch.float32)
-                  for k in (1, 2))
-        outs.append(stt_peaks(t1, t2, win))
-    peaks = _gather_to_first(mesh, outs)
-    return stt_average(*peaks, threshold, max_delta_y)
-
-
 class ShardedScene:
     """:class:`~..models.device_pipeline.ScenePipeline` over a line mesh:
     the same :meth:`estimate`, :meth:`transform` and :meth:`forward` on
@@ -165,6 +76,7 @@ class ShardedScene:
         self.pipe = pipe
         self.mesh = mesh
         self.pipes = _per_device(pipe, mesh)
+        self._gather = functools.partial(_gather_to_first, mesh)
 
     def _shard(self, pan1, pan2, mss):
         m = self.mesh
@@ -185,18 +97,8 @@ class ShardedScene:
         """-> (cx (4, 2), cy (4, 3), n_valid (4,), raw_dx, raw_dy, n_stt)
         on this process's first device (every process's)."""
         pan1, pan2, mss = self._shard(pan1, pan2, mss)
-        p = self.pipe
-        geom = register_geometry(pan1.rows, pan1.shape[1], p.slices,
-                                 p.n_sections)
-        params = {dev: (q.pan1_k, q.pan1_b, q.mss_k, q.mss_b)
-                  for dev, q in self.pipes.items()}
-        stats = correlate_sharded(geom, pan1, mss, params)
-        coeffs, n_valid = fit_tiles(geom, *stats, p.threshold)
-        raw_dx, raw_dy, _resp, n_stt = stt_sharded(
-            pan1, pan2, overlap_cols=p.overlap_cols, **p.stt_kw)
-        cx = torch.stack([c[0] for c in coeffs])
-        cy = torch.stack([c[1] for c in coeffs])
-        return cx, cy, n_valid, raw_dx, raw_dy, n_stt
+        return self.pipe.estimate_rows(pan1, pan2, mss, self.mesh.devices,
+                                       self._gather, self.pipes)
 
     def transform(self, pan1, pan2, mss, cx, cy, raw_dx, raw_dy):
         """-> (aligned (L/4, W/4, 4), stitched (L, 2*(W - fold))[, prestt
@@ -255,7 +157,8 @@ class ShardedScene:
 class ShardedMssAlign:
     """:class:`~..models.device_pipeline.MssAlign` over a line mesh: RRC of
     the line-sharded bands (kernel (a)), the registration against the
-    line-sharded corrected PAN (:func:`correlate_sharded`), and each
+    line-sharded corrected PAN (:meth:`MssAlign.register` on the shards),
+    and each
     shard's alignment resample with its neighbours' halo rows
     (``MssAlign.remap``, kernel (c) at row bound 6)."""
 
@@ -263,6 +166,7 @@ class ShardedMssAlign:
         self.align = align
         self.mesh = mesh
         self.aligns = _per_device(align, mesh)
+        self._gather = functools.partial(_gather_to_first, mesh)
 
     def remap(self, mss_c: LineSharded, cx, cy) -> LineSharded:
         halo = self.align.row_bound + 2
@@ -289,13 +193,8 @@ class ShardedMssAlign:
         mss = as_line_sharded(self.mesh, mss, 1)
         mss_c = mss.map(lambda t, dev: rrc_apply(
             t, self.aligns[dev].mss_k, self.aligns[dev].mss_b))
-        al = self.align
-        geom = register_geometry(pan_c.rows, pan_c.shape[1], al.slices,
-                                 al.n_sections)
-        stats = correlate_sharded(geom, pan_c, mss_c)
-        coeffs, n_valid = fit_tiles(geom, *stats, al.threshold)
-        cx = torch.stack([c[0] for c in coeffs])
-        cy = torch.stack([c[1] for c in coeffs])
+        cx, cy, n_valid = self.align.register(pan_c, mss_c, self.mesh.devices,
+                                              self._gather)
         return self.remap(mss_c, cx, cy), n_valid, (cx, cy)
 
     __call__ = forward

@@ -109,6 +109,29 @@ def test_register_fast_two_sections_tile_order(rng):
             assert d.max() <= 1e-3, (b, k, d.max())
 
 
+def test_resident_tiles_are_views_of_the_strips(rng, monkeypatch):
+    """ScenePipeline.estimate's row source hands _section_tiles views of
+    the resident strips: every row block shares its strip's storage,
+    nothing is copied before the RRC and the cast."""
+    pan, mss = _scene(rng, lines_mss=4032, band_px=128)
+    pan_t, mss_t = torch.from_numpy(pan), torch.from_numpy(mss)
+    strips = {t.untyped_storage().data_ptr() for t in (pan_t, mss_t)}
+    seen = []
+    real = dp._section_tiles
+
+    def spy(blk, params, cols):
+        seen.append(blk.untyped_storage().data_ptr())
+        return real(blk, params, cols)
+
+    monkeypatch.setattr(dp, "_section_tiles", spy)
+    ident = (np.ones(512), np.zeros(512))
+    pipe = dp.ScenePipeline(ident, ident, (np.ones((4, 128)),
+                                           np.zeros((4, 128))),
+                            slices=4, n_sections=2)
+    pipe.estimate(pan_t, pan_t, mss_t)
+    assert len(seen) == 4 and set(seen) == strips
+
+
 def _cmos_pair(rng, lines=1024, width=1024, ov=200):
     """tests/test_device_pipeline.py:191-201: PAN2's left block is PAN1's
     right block shifted by (rows +2, cols -3)."""

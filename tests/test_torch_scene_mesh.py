@@ -88,11 +88,12 @@ def data(tmp_path_factory):
                 mss2_out=mss2_out)
 
 
-@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("n", [1, 4, 8])
 def test_sharded_estimate_is_resident_bit_for_bit(data, n):
     """The tiles cut from the shards, RRC'd as they are cut, in blocks on
     the devices, and the stt windows likewise: the resident estimate bit for
-    bit (the CPU's FFTs do not depend on their batch here)."""
+    bit (the CPU's FFTs do not depend on their batch here).  One device is
+    the CLI's ``scene`` without ``--mesh``."""
     pan1, pan2, mss, _ = data["inputs"]
     got = ShardedScene(data["pipe"], cpu_mesh(n)).estimate(pan1, pan2, mss)
     for g, w in zip(got, data["est"]):
@@ -115,7 +116,7 @@ def test_sharded_transform_is_resident_byte_for_byte(data, n):
         assert torch.equal(g.gather(), w)
 
 
-@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("n", [1, 4, 8])
 def test_sharded_mss_align_is_resident(data, n):
     """CMOS2's MSS against the prestitched PAN2 over the mesh: MssAlign's
     valid counts and fits bit for bit, its aligned raster byte for byte."""

@@ -16,6 +16,10 @@ from torch.profiler import ProfilerActivity, profile
 from opticalimageprocessor_tpu_torch import _build, cli
 from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
 from opticalimageprocessor_tpu_torch.ops.resample import upsample4_f32
+from opticalimageprocessor_tpu_torch.parallel.mesh import LineMesh
+from opticalimageprocessor_tpu_torch.parallel.sharded_scene import (
+    ShardedScene,
+)
 from opticalimageprocessor_tpu_torch.utils import logging as tlog
 
 torch.set_num_threads(2)
@@ -129,6 +133,26 @@ def test_outputs_identical_with_tracing_on_and_off(traced):
     off = pipe(*args)
     for on in outs:
         _same(on, off)
+
+
+def test_mesh_estimate_exports_the_estimate_spans(tmp_path):
+    """ShardedScene.estimate on a 2-device CPU mesh runs the resident
+    route's estimate: its registration steps and its stt export the same
+    spans, nested in oip.estimate."""
+    pipe, args = _pipeline()
+    scene = ShardedScene(pipe, LineMesh(["cpu"] * 2))
+    tlog.reset_span_report()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        scene.estimate(*args)
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    names = {e["name"] for e in json.loads(
+        (tmp_path / "trace.json").read_text())["traceEvents"]
+        if e.get("cat") == "user_annotation"}
+    for name in (*REGISTER, "oip.stt"):
+        assert name in names, name
+        assert report[name]["parent"] == "oip.estimate", name
 
 
 def test_untraced_spans_call_no_record_function(monkeypatch):
