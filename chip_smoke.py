@@ -14,7 +14,7 @@ intervals, idle share; no other phase runs):
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, torch/CUDA versions, and the build of
-   the seven hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
+   the eight hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its stated tolerance, both timed
    with CUDA events, beside the kernel's bound (the bytes it must move at
@@ -34,7 +34,11 @@ Phases (any failure exits non-zero and prints no result line):
    depthwise conv1d of the same sum (also never called by the port);
    kernel (c) also at MSS2's row bound 6 on the scene's 4 bands, and (d)
    at a streamed section's shape (4116 rows) with the prestitched PAN2
-   written out;
+   written out; kernel (h), the registration's tile stacks, at the
+   160000-line scene's 50 PAN and 50 band-quad tiles, RRC'd and raw,
+   torch.equal to its plain version and to the chain the port ran before
+   it (kernel (a), casts, ``torch.cat``, a zero ``F.pad``), that chain
+   timed as its yardstick;
 3. the CLI entry (``cli.main(["scene", "--mss2", ...])``: the whole
    sample-task workflow) on a 16384-line scene of RAW files built like
    bench.py's synthesis plus a CMOS2 MSS, checking the outputs' shapes,
@@ -44,8 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
    around this run;
 4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
    path against the plain path with pinned estimates, one launch each of
-   kernels (b) and (g) an estimate (its time is the benchmark's,
-   ``portbench/``);
+   kernels (b) and (g) an estimate and two of (h) a row block (its time
+   is the benchmark's, ``portbench/``);
 5. the file workflow through ``cli.main`` on 16384-line RAW files:
    ``prestitch --fast`` on a CMOS pair 3 rows apart (kernel (c)'s route)
    and on one 9 rows apart (the staged route, kernel (e)), the default
@@ -392,6 +396,8 @@ def phase_kernels(dev, records):
     )
     del mss
     say(f"[a] rrc: byte-exact; {records['rrc']}")
+    phase_tile_stack(dev, records)
+    torch.cuda.empty_cache()
 
     # (b) windowed cross-power: 2 tiles x 4 bands at the registration shapes
     M, N, m, n, win = 16000, 1228, 4000, 307, 64
@@ -664,6 +670,104 @@ def phase_row_pass(dev, rng, records):
                                    "library_ms") if k in r}
                 for r in shapes])
     say(f"[e] {json.dumps(records['row_pass'])}")
+
+
+def phase_tile_stack(dev, records, lines: int = 160000):
+    """Kernel (h) at the 160000-line scene's registration: its 50 PAN tiles
+    (16000 x 1228) and 50 band quads (4 x 4000 x 307) cut from RAW strips
+    on the card into the two float32 stacks, one launch a row block for
+    each, as ``register_rows`` cuts them; RRC'd, and raw (the dual scene's
+    second registration).  Each stack torch.equal to the plain version's
+    and to the chain the port ran before (kernel (a) into uint16 blocks,
+    casts, ``torch.cat`` of the row blocks, the zero ``F.pad`` -- a
+    clone -- ahead of the rfft2), which times as the yardstick the port
+    no longer calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from opticalimageprocessor_tpu_torch import _build
+    from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
+    from opticalimageprocessor_tpu_torch.ops import rrc, tile_stack
+
+    geom = dp.register_geometry(lines, W, 10, 5)
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+
+    def noise(*shape):
+        return torch.randint(-32768, 32768, shape, generator=g, device=dev,
+                             dtype=torch.int16).view(torch.uint16)
+
+    pan, mss = noise(lines, W), noise(4, lines // 4, BW)
+    rng = np.random.default_rng(SEED + 25)
+    pp = tuple(torch.from_numpy(x).to(dev) for x in rand_params(rng, W))
+    bp = tuple(torch.from_numpy(x).to(dev) for x in rand_params(rng, 4, BW))
+    runs = dp.tile_runs(dp.tile_blocks(geom.n_sections * geom.slices, 1),
+                        geom.slices)
+    n = geom.n_sections * geom.slices
+    pixels = n * (geom.corr_rows * geom.cols + 4 * geom.brows * geom.bcols)
+
+    def blocks(sec, i0, i1):
+        r0 = geom.row0(sec)
+        return ((pan[r0:r0 + geom.corr_rows, i0 * geom.cols:i1 * geom.cols],
+                 geom.cols),
+                (mss[:, r0 // 4:r0 // 4 + geom.brows,
+                     i0 * geom.bcols:i1 * geom.bcols], geom.bcols))
+
+    def stacks(write, params):
+        out = [torch.empty((n, geom.corr_rows, geom.cols), device=dev),
+               torch.empty((n, 4, geom.brows, geom.bcols), device=dev)]
+        t0 = 0
+        for _d, sec, i0, i1 in runs:
+            for (blk, cols), s, p in zip(blocks(sec, i0, i1), out, params):
+                write(s, t0, blk, dp._cols(p, i0 * cols, i1 * cols), cols)
+            t0 += i1 - i0
+        return out
+
+    def before(params):
+        tiles = ([], [])
+        for _d, sec, i0, i1 in runs:
+            for (blk, cols), ts, p in zip(blocks(sec, i0, i1), tiles, params):
+                p = dp._cols(p, i0 * cols, i1 * cols)
+                if p is not None:
+                    blk = rrc.rrc_apply(blk, *p)
+                t = blk.to(torch.float32).reshape(*blk.shape[:-1], -1, cols)
+                ts.append(t.movedim(-2, 0))
+        return [F.pad(torch.cat(tiles[0]), (0, 0, 0, 0)),
+                torch.cat(tiles[1])]
+
+    out = {}
+    for tag, params in (("rrc", (pp, bp)), ("raw", (None, None))):
+        _build.reset_launch_counts()
+        got = stacks(tile_stack.write_tiles, params)
+        check(_build.LAUNCHES["tile_stack"] == 2 * geom.n_sections,
+              "tile_stack launches a registration")
+        for a, b in zip(got, before(params)):
+            check(bool(torch.equal(a, b)), f"(h) {tag} vs the former chain")
+        for a, b in zip(got, stacks(tile_stack._write_tiles_plain, params)):
+            check(bool(torch.equal(a, b)), f"(h) {tag} vs plain")
+        del got
+        torch.cuda.empty_cache()
+        out[tag] = dict(
+            ms=time_ms(lambda: stacks(tile_stack.write_tiles, params), 20),
+            library_ms=time_ms(lambda: before(params), 5),
+            plain_ms=time_ms(
+                lambda: stacks(tile_stack._write_tiles_plain, params), 1))
+        torch.cuda.empty_cache()
+    # a uint16 read and a float32 write a pixel, the float64 (k, b) of
+    # each run's columns
+    records["tile_stack"] = dict(
+        max_abs_err=0, **out["rrc"],
+        raw_ms=out["raw"]["ms"], raw_library_ms=out["raw"]["library_ms"],
+        raw_plain_ms=out["raw"]["plain_ms"],
+        shape=(f"the {lines}-line scene's registration: {n} x "
+               f"({geom.corr_rows}, {geom.cols}) PAN + {n} x (4, "
+               f"{geom.brows}, {geom.bcols}) band tiles, "
+               f"{2 * geom.n_sections} launches"),
+        **bound(6 * pixels + 16 * geom.n_sections * (geom.slices * geom.cols
+                                                     + 4 * geom.slices
+                                                     * geom.bcols)),
+    )
+    say(f"[h] tile stack: torch.equal to plain and to the former chain; "
+        f"{json.dumps(records['tile_stack'])}")
 
 
 def f32(dev, *rows):
@@ -1044,6 +1148,7 @@ def phase_pipeline(dev, lines: int = 32768):
         ScenePipeline,
         check_registration_valid,
         check_stt_valid,
+        register_geometry,
     )
 
     from opticalimageprocessor_tpu_torch import _build
@@ -1059,6 +1164,10 @@ def phase_pipeline(dev, lines: int = 32768):
     for k in ("crosspower", "ky_gemm"):
         check(_build.LAUNCHES[k] == 1, f"a scene's estimate took "
               f"{_build.LAUNCHES[k]} launches of {k}, not 1")
+    blocks = register_geometry(lines, W).n_sections
+    check(_build.LAUNCHES["tile_stack"] == 2 * blocks,
+          f"a scene's estimate took {_build.LAUNCHES['tile_stack']} "
+          f"launches of tile_stack, not 2 a row block ({blocks})")
     check_registration_valid(n_valid.cpu())
     check_stt_valid(n_stt)
     say(f"[pipe] n_valid {n_valid.tolist()} n_stt {int(n_stt)} "
@@ -3628,11 +3737,13 @@ def main() -> int:
         return 0
 
     records: dict[str, dict] = {}
-    phase_kernels(dev, records)
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="oip_smoke_") as tmp:
-        # one log for phases 3, 5 and 6: the logger opens LOGFILE once
+        # one log for phases 3, 5 and 6: the logger opens LOGFILE once, when
+        # the port's utils/logging is first imported (phase 2's kernel (h)
+        # imports it)
         os.environ["LOGFILE"] = os.path.join(tmp, "oip.log")
+        phase_kernels(dev, records)
+        torch.cuda.empty_cache()
         check_graft_entry(dev)
         scene_dir, files_dir = Path(tmp, "scene"), Path(tmp, "files")
         scene_dir.mkdir()
@@ -3695,6 +3806,10 @@ def main() -> int:
         # not a TPU kernel: the einsum the JAX package leaves to XLA
         "ky_gemm": ("opticalimageprocessor_tpu_torch/csrc/ky_gemm.cu",
                     "opticalimageprocessor_tpu/ops/phasecorr_pallas.py:266"),
+        # not a TPU kernel: XLA fused the tile cut (dynamic_slice,
+        # _rrc_math, astype) into the FFT's input
+        "tile_stack": ("opticalimageprocessor_tpu_torch/csrc/tile_stack.cu",
+                       "opticalimageprocessor_tpu/models/device_pipeline.py:163"),
         # not a TPU kernel: the XLA program the JAX package runs a section
         "remap_section": (
             "opticalimageprocessor_tpu_torch/csrc/remap_section.cu",
@@ -3716,7 +3831,8 @@ def main() -> int:
                                  "section_ms", "section_bound_ms", "library",
                                  "shapes", "band_section_ms",
                                  "band_section_bound_ms",
-                                 "band_section_library_ms", "section_peak_gb")
+                                 "band_section_library_ms", "section_peak_gb",
+                                 "raw_ms", "raw_library_ms", "raw_plain_ms")
                if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ Counterpart of ``opticalimageprocessor_tpu/models/device_pipeline.py``.
 Per scene:
 
   estimate:  registration -- (section, slice) tiles of PAN1 and the 4 MSS
-             bands, RRC'd inline (kernel (a)), one batched rfft2 of the
-             PAN tiles and one fft2 of the band tiles (cuFFT), the fused
+             bands, RRC'd inline and written as float32 into one tile
+             stack each (kernel (h)), one batched rfft2 of the PAN tiles
+             and one fft2 of the band tiles (cuFFT), the fused
              windowed cross-power of every (tile, band) (kernel (b)), the
              5x5 centroid, the 0.4 response filter and a float64 weighted
              polynomial fit; then the stt estimate on the uncorrected CMOS
@@ -53,6 +54,7 @@ from ..ops import phasecorr
 from ..ops.phasecorr_cuda import windowed_crosspower_fused_tiles
 from ..ops.resample import remap_bands_interleaved, remap_const_stitch_chunked
 from ..ops.rrc import rrc_apply
+from ..ops.tile_stack import write_tiles
 from ..utils.logging import SCENE_SPAN, span, to_host
 
 RRCParams = tuple[torch.Tensor, torch.Tensor]
@@ -85,16 +87,6 @@ def _fit_poly(cx: torch.Tensor, y: torch.Tensor, deg: int,
     c, _info = torch.linalg.solve_ex(a, r)
     k = torch.arange(deg + 1, dtype=f64, device=c.device)
     return (c * scale ** k).to(torch.float32)
-
-
-def _section_tiles(blk, params, cols):
-    """The tiles of ``cols`` columns of a (..., rows, n * cols) row block,
-    RRC'd when ``params`` (its columns' ``(k, b)``) is given, as float32
-    (n, ..., rows, cols)."""
-    if params is not None:
-        blk = rrc_apply(blk, *params)
-    t = blk.to(torch.float32).reshape(*blk.shape[:-1], -1, cols)
-    return t.movedim(-2, 0)
 
 
 def _cols(params, c0: int, c1: int):
@@ -195,22 +187,27 @@ def _first(devices):
     return next(d for d in devices if d is not None)
 
 
-def correlate_tiles(geom: RegGeometry, pan_tiles, band_tiles,
+def correlate_tiles(geom: RegGeometry, stacks,
                     win: tuple[int, int] = (64, 64)):
-    """The correlation of one slot's block of tiles: lists of tile
-    blocks (float32 (n, corr_rows, cols) and (n, 4, brows, bcols) each),
-    emptied as they are consumed so the tiles' memory is freed before
-    kernel (b) runs; one batched rfft2 of the PAN tiles, one fft2 of the
-    band tiles and one kernel-(b) launch.  -> ``(dx, dy, rs)``, each (T,
-    4) float32."""
+    """The correlation of one slot's block of tiles: ``stacks``, the list
+    of its float32 PAN tile stack (n, corr_rows, cols) and band tile stack
+    (n, 4, brows, bcols), emptied as it is taken so that each stack is
+    freed once its FFT has run; one batched rfft2 of the PAN tiles (the
+    tile is the padded size: no pad), one fft2 of the band tiles and one
+    kernel-(b) launch.  -> ``(dx, dy, rs)``, each (T, 4) float32."""
     pad = (geom.corr_rows, geom.cols)
     win = phasecorr.clamp_win(win, pad)
-    dev = pan_tiles[0].device
+    pan, band = stacks
+    stacks.clear()
+    if tuple(pan.shape[-2:]) != pad:
+        raise ValueError(f"PAN tiles {tuple(pan.shape[-2:])} are not the "
+                         f"correlation's {pad}")
+    dev = pan.device
     with span("oip.register.spectra", dev):
-        fpan = phasecorr.rfft2_padded(torch.cat(pan_tiles), pad)
-        pan_tiles.clear()
-        fband = phasecorr.band_full_spectrum_small(torch.cat(band_tiles))
-        band_tiles.clear()
+        fpan = torch.fft.rfft2(pan)
+        del pan
+        fband = phasecorr.band_full_spectrum_small(band)
+        del band
     with span("oip.register.correlate", dev):
         return windowed_crosspower_fused_tiles(
             fpan, fband, pad, geom.brows, win[0], win[1]
@@ -247,11 +244,13 @@ def register_rows(geom: RegGeometry, pan, bands, devices,
     The (section, slice) tiles are split over the ``devices`` slots in
     contiguous blocks (:func:`tile_blocks`; a slot of None is another
     process's and is skipped).  Each block is cut from the rows its slot
-    fetches and correlated on its device (:func:`correlate_tiles`) before
-    the next block's rows are taken, so one block's tiles are alive at a
-    time.  ``gather`` takes the blocks' (dx, dy, rs) to one (T, 4) each in
-    tile order, and :func:`fit_tiles` fits them.  -> ``(cx (4, 2), cy (4,
-    3), n_valid (4,))``.  Plans that cut the same tiles give bit-identical
+    fetches, a run of tiles a section, straight into one float32 stack of
+    its PAN tiles and one of its band tiles (:func:`write_tiles`), and
+    correlated on its device (:func:`correlate_tiles`) before the next
+    block's rows are taken, so one block's tiles are alive at a time.
+    ``gather`` takes the blocks' (dx, dy, rs) to one (T, 4) each in tile
+    order, and :func:`fit_tiles` fits them.  -> ``(cx (4, 2), cy (4, 3),
+    n_valid (4,))``.  Plans that cut the same tiles give bit-identical
     estimates wherever the FFTs' bits do not depend on their batch."""
     runs = tile_runs(tile_blocks(geom.n_sections * geom.slices,
                                  len(devices)), geom.slices)
@@ -269,17 +268,25 @@ def register_rows(geom: RegGeometry, pan, bands, devices,
             for _run in block:
                 next(pan_blks), next(band_blks)
             continue
+        block = list(block)
         pp, bp = rrc[dev] if rrc else (None, None)
-        pan_tiles, band_tiles = [], []
+        n = sum(i1 - i0 for _d, _sec, i0, i1 in block)
         with span("oip.register.tiles", dev):
+            stacks = [
+                torch.empty((n, geom.corr_rows, geom.cols),
+                            dtype=torch.float32, device=dev),
+                torch.empty((n, *bands.shape[:-2], geom.brows, geom.bcols),
+                            dtype=torch.float32, device=dev)]
+            t0 = 0
             for _d, _sec, i0, i1 in block:
-                pan_tiles.append(_section_tiles(
-                    next(pan_blks), _cols(pp, i0 * geom.cols, i1 * geom.cols),
-                    geom.cols))
-                band_tiles.append(_section_tiles(
-                    next(band_blks),
-                    _cols(bp, i0 * geom.bcols, i1 * geom.bcols), geom.bcols))
-        stats.append(correlate_tiles(geom, pan_tiles, band_tiles, win))
+                write_tiles(stacks[0], t0, next(pan_blks),
+                            _cols(pp, i0 * geom.cols, i1 * geom.cols),
+                            geom.cols)
+                write_tiles(stacks[1], t0, next(band_blks),
+                            _cols(bp, i0 * geom.bcols, i1 * geom.bcols),
+                            geom.bcols)
+                t0 += i1 - i0
+        stats.append(correlate_tiles(geom, stacks, win))
     coeffs, n_valid = fit_tiles(geom, *gather(stats), threshold)
     return (torch.stack([c[0] for c in coeffs]),
             torch.stack([c[1] for c in coeffs]), n_valid)

@@ -11,6 +11,7 @@ from opticalimageprocessor_tpu.models import device_pipeline as jdp
 from opticalimageprocessor_tpu.ops import resample as jres
 from opticalimageprocessor_tpu.ops import rrc as jrrc
 from opticalimageprocessor_tpu_torch.models import device_pipeline as dp
+from opticalimageprocessor_tpu_torch.ops import rrc
 
 torch.set_num_threads(2)
 
@@ -110,26 +111,105 @@ def test_register_fast_two_sections_tile_order(rng):
 
 
 def test_resident_tiles_are_views_of_the_strips(rng, monkeypatch):
-    """ScenePipeline.estimate's row source hands _section_tiles views of
-    the resident strips: every row block shares its strip's storage,
-    nothing is copied before the RRC and the cast."""
+    """ScenePipeline.estimate's row source hands write_tiles views of the
+    resident strips: every row block shares its strip's storage, nothing
+    is copied before the one pass that RRCs, casts and lays out the
+    tiles."""
     pan, mss = _scene(rng, lines_mss=4032, band_px=128)
     pan_t, mss_t = torch.from_numpy(pan), torch.from_numpy(mss)
     strips = {t.untyped_storage().data_ptr() for t in (pan_t, mss_t)}
     seen = []
-    real = dp._section_tiles
+    real = dp.write_tiles
 
-    def spy(blk, params, cols):
+    def spy(stack, t0, blk, params, cols):
         seen.append(blk.untyped_storage().data_ptr())
-        return real(blk, params, cols)
+        return real(stack, t0, blk, params, cols)
 
-    monkeypatch.setattr(dp, "_section_tiles", spy)
+    monkeypatch.setattr(dp, "write_tiles", spy)
     ident = (np.ones(512), np.zeros(512))
     pipe = dp.ScenePipeline(ident, ident, (np.ones((4, 128)),
                                            np.zeros((4, 128))),
                             slices=4, n_sections=2)
     pipe.estimate(pan_t, pan_t, mss_t)
     assert len(seen) == 4 and set(seen) == strips
+
+
+def _section_tiles(blk, params, cols):
+    """The parent's cut of a row block's tiles, kept as the oracle of the
+    tile stacks: kernel (a) into a uint16 block, a cast, a strided view
+    (one (n, ..., rows, cols) block a run, ``torch.cat`` of a slot's)."""
+    if params is not None:
+        blk = rrc.rrc_apply(blk, *params)
+    t = blk.to(torch.float32).reshape(*blk.shape[:-1], -1, cols)
+    return t.movedim(-2, 0)
+
+
+def _extreme_params(rng, *shape):
+    """RRC (k, b) of ordinary gains and biases, with columns whose values
+    wrap negative, reach 2^31 or more, or are NaN."""
+    k = 0.98 + 0.04 * rng.random(shape)
+    b = rng.normal(0, 20, shape)
+    flat_k, flat_b = k.reshape(-1), b.reshape(-1)
+    flat_k[1::7], flat_b[1::7] = -0.75, 30000.0
+    flat_k[2::11] = 70000.0
+    flat_k[3::13] = np.nan
+    flat_b[4::17] = 2.0 ** 31
+    return torch.from_numpy(k), torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("slices,sections,slots", [(5, 3, 1), (5, 3, 2),
+                                                   (5, 2, 3)],
+                         ids=["1slot", "2slots", "3slots"])
+@pytest.mark.parametrize("inline_rrc", [False, True], ids=["raw", "rrc"])
+@pytest.mark.parametrize("wider", [False, True], ids=["strip", "window"])
+def test_tile_stacks_equal_the_parents_cat(rng, monkeypatch, slices,
+                                           sections, slots, inline_rrc,
+                                           wider):
+    """The stacks register_rows hands correlate_tiles are, slot by slot,
+    torch.equal to the parent's torch.cat of the sections' tiles: RRC
+    parameters (extreme ones too) or none, one run or several a slot,
+    ragged tile blocks (15 tiles on 2 slots, 10 on 3), the strips whole
+    or column windows of wider arrays (views with other strides)."""
+    geom = dp.RegGeometry(slices, sections, corr_rows=64, sec_stride=40,
+                          cols=32, bcols=8, brows=16)
+    lines, width = 64 + 40 * (sections - 1), slices * 32
+    pan = rng.integers(0, 65536, (lines, width + 24), dtype=np.uint16)
+    mss = rng.integers(0, 65536, (4, lines // 4, width // 4 + 6),
+                       dtype=np.uint16)
+    pan_t, mss_t = torch.from_numpy(pan), torch.from_numpy(mss)
+    if wider:
+        pan_t, mss_t = pan_t[:, 8:8 + width], mss_t[..., 2:2 + width // 4]
+    else:
+        pan_t = pan_t[:, :width].contiguous()
+        mss_t = mss_t[..., :width // 4].contiguous()
+    pp = _extreme_params(rng, width) if inline_rrc else None
+    bp = _extreme_params(rng, 4, width // 4) if inline_rrc else None
+    seen = []
+    real = dp.correlate_tiles
+
+    def spy(geom, stacks, win=(64, 64)):
+        seen.append([s.clone() for s in stacks])
+        return real(geom, stacks, win)
+
+    monkeypatch.setattr(dp, "correlate_tiles", spy)
+    cpu = torch.device("cpu")
+    dp.register_rows(geom, dp.StripRows(pan_t), dp.StripRows(mss_t),
+                     [cpu] * slots, {cpu: (pp, bp)},
+                     gather=lambda outs: [torch.cat(x) for x in zip(*outs)],
+                     win=(8, 8))
+    runs = dp.tile_runs(dp.tile_blocks(slices * sections, slots), slices)
+    assert len(seen) == slots
+    for d, (pan_stack, band_stack) in enumerate(seen):
+        mine = [r for r in runs if r[0] == d]
+        want_pan = torch.cat([_section_tiles(
+            pan_t[sec * 40:sec * 40 + 64, i0 * 32:i1 * 32],
+            dp._cols(pp, i0 * 32, i1 * 32), 32) for _d, sec, i0, i1 in mine])
+        want_band = torch.cat([_section_tiles(
+            mss_t[:, sec * 10:sec * 10 + 16, i0 * 8:i1 * 8],
+            dp._cols(bp, i0 * 8, i1 * 8), 8) for _d, sec, i0, i1 in mine])
+        assert pan_stack.is_contiguous() and band_stack.is_contiguous()
+        assert torch.equal(pan_stack, want_pan), d
+        assert torch.equal(band_stack, want_band), d
 
 
 def _cmos_pair(rng, lines=1024, width=1024, ov=200):

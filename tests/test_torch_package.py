@@ -47,6 +47,7 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.ops.polyfit",
     "opticalimageprocessor_tpu_torch.ops.resample",
     "opticalimageprocessor_tpu_torch.ops.rrc",
+    "opticalimageprocessor_tpu_torch.ops.tile_stack",
     "opticalimageprocessor_tpu_torch.parallel",
     "opticalimageprocessor_tpu_torch.parallel.distributed",
     "opticalimageprocessor_tpu_torch.parallel.halo",

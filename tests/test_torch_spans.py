@@ -127,6 +127,48 @@ def test_host_syncs_count_four_a_forward(traced):
                                     "count": 4 * FORWARDS}
 
 
+def test_reg_stack_tiles_counts_every_tile_once_a_forward(traced):
+    """Each registration writes its 8 PAN tiles and 8 band-quad tiles
+    (8 slices, one row block) into its stacks: 16 a forward, in one
+    write_tiles call each for the PAN and the bands."""
+    _pipe, _args, _outs, report, _events = traced
+    assert report["reg_stack_tiles"] == {"calls": 2 * FORWARDS,
+                                         "parent": "oip.register.tiles",
+                                         "count": 16 * FORWARDS}
+
+
+def test_reg_stack_tiles_at_the_scene_geometry():
+    """At the benchmark's geometry (10 slices, 5 row blocks; small rows
+    here) a registration writes 100 tiles -- 50 PAN, 50 band quads -- in
+    10 write_tiles calls (kernel (h)'s launches on the card); the counter
+    counts nothing while no profiler records."""
+    geom = dp.RegGeometry(10, 5, corr_rows=64, sec_stride=16, cols=32,
+                          bcols=8, brows=16)
+    rng = np.random.default_rng(3)
+    pan = torch.from_numpy(rng.integers(0, 65536, (128, 320),
+                                        dtype=np.uint16))
+    mss = torch.from_numpy(rng.integers(0, 65536, (4, 32, 80),
+                                        dtype=np.uint16))
+    cpu = torch.device("cpu")
+
+    def register():
+        return dp.register_rows(geom, dp.StripRows(pan), dp.StripRows(mss),
+                                [cpu], win=(8, 8))
+
+    tlog.reset_span_report()
+    off = register()
+    assert "reg_stack_tiles" not in tlog.span_report()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = register()
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    assert report["reg_stack_tiles"]["count"] == 100
+    assert report["reg_stack_tiles"]["calls"] == 10
+    for x, y in zip(off, on, strict=True):
+        # noise against noise: the fits may be NaN, on and off alike
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
 def test_outputs_identical_with_tracing_on_and_off(traced):
     pipe, args, outs, _report, _events = traced
     assert not tlog.tracing()
@@ -346,6 +388,14 @@ def test_host_syncs_count_four_a_dual_forward(traced_dual):
     _dual, _args, _out, report, _events = traced_dual
     assert report["host_syncs"]["count"] == 4
     assert report["host_syncs"]["calls"] == 4
+
+
+def test_reg_stack_tiles_counts_both_registrations(traced_dual):
+    """Two registrations a dual scene, each writing its 16 tiles: 32 (at
+    the benchmark's 10 slices and 5 row blocks, 200)."""
+    _dual, _args, _out, report, _events = traced_dual
+    assert report["reg_stack_tiles"]["count"] == 32
+    assert report["reg_stack_tiles"]["calls"] == 4
 
 
 def test_dual_outputs_identical_with_tracing_on_and_off(traced_dual):
