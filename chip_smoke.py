@@ -14,7 +14,7 @@ intervals, idle share; no other phase runs):
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, torch/CUDA versions, and the build of
-   the eight hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
+   the nine hand-written kernels from ``opticalimageprocessor_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its stated tolerance, both timed
    with CUDA events, beside the kernel's bound (the bytes it must move at
@@ -38,7 +38,10 @@ Phases (any failure exits non-zero and prints no result line):
    160000-line scene's 50 PAN and 50 band-quad tiles, RRC'd and raw,
    torch.equal to its plain version and to the chain the port ran before
    it (kernel (a), casts, ``torch.cat``, a zero ``F.pad``), that chain
-   timed as its yardstick;
+   timed as its yardstick; kernel (i), the registration's row DFTs, at
+   the same scene's 50 PAN tiles and 50 band quads, each tile within
+   2e-6 and twice cuFFT's float32 error of the float64 FFT, beside
+   cuFFT's row transforms;
 3. the CLI entry (``cli.main(["scene", "--mss2", ...])``: the whole
    sample-task workflow) on a 16384-line scene of RAW files built like
    bench.py's synthesis plus a CMOS2 MSS, checking the outputs' shapes,
@@ -48,7 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
    around this run;
 4. ``ScenePipeline`` on device-resident tensors at 32768 lines: kernel
    path against the plain path with pinned estimates, one launch each of
-   kernels (b) and (g) an estimate and two of (h) a row block (its time
+   kernels (b) and (g) an estimate, two of (i) and two of (h) a row block
+   (its time
    is the benchmark's, ``portbench/``);
 5. the file workflow through ``cli.main`` on 16384-line RAW files:
    ``prestitch --fast`` on a CMOS pair 3 rows apart (kernel (c)'s route)
@@ -398,6 +402,8 @@ def phase_kernels(dev, records):
     say(f"[a] rrc: byte-exact; {records['rrc']}")
     phase_tile_stack(dev, records)
     torch.cuda.empty_cache()
+    phase_row_fft(dev, records)
+    torch.cuda.empty_cache()
 
     # (b) windowed cross-power: 2 tiles x 4 bands at the registration shapes
     M, N, m, n, win = 16000, 1228, 4000, 307, 64
@@ -407,8 +413,9 @@ def phase_kernels(dev, records):
     pan = resample.upsample4_f32(base)
     bands = torch.stack(
         [torch.roll(base, (b % 2, b - 1), (1, 2)) for b in range(4)], dim=1)
-    fpan = phasecorr.rfft2_padded(pan, (M, N))
-    fband = phasecorr.band_full_spectrum_small(bands)
+    # kernel (b) reads the spectra kx-major, as kernel (i) leaves them
+    fpan = pcc.kx_major(phasecorr.rfft2_padded(pan, (M, N)))
+    fband = pcc.kx_major(phasecorr.band_full_spectrum_small(bands))
     hr = phasecorr.filter_response(m, 4, dev)
     hc = phasecorr.filter_response(n, 4, dev)[:keep]
     ex_c, ex_s = phasecorr.eval_consts(N, keep, win, False, dev)
@@ -438,8 +445,9 @@ def phase_kernels(dev, records):
         rng.integers(2000, 42000, (tr, mr, n), dtype=np.int32)).to(dev)
     bands = torch.stack(
         [torch.roll(base, (b % 2, b - 1), (1, 2)) for b in range(4)], dim=1)
-    fpan = phasecorr.rfft2_padded(resample.upsample4_f32(base), (4 * mr, N))
-    fband = phasecorr.band_full_spectrum_small(bands)
+    fpan = pcc.kx_major(
+        phasecorr.rfft2_padded(resample.upsample4_f32(base), (4 * mr, N)))
+    fband = pcc.kx_major(phasecorr.band_full_spectrum_small(bands))
     del base, bands
     ragged = crosspower_vs_plain(
         "[b] crosspower ragged", (fpan, fband,
@@ -456,8 +464,9 @@ def phase_kernels(dev, records):
         rng.integers(2000, 42000, (tiles, m, n), dtype=np.int32)).to(dev)
     bands = torch.stack(
         [torch.roll(base, (b % 2, b - 1), (1, 2)) for b in range(4)], dim=1)
-    fpan = phasecorr.rfft2_padded(resample.upsample4_f32(base), (M, N))
-    fband = phasecorr.band_full_spectrum_small(bands)
+    fpan = pcc.kx_major(
+        phasecorr.rfft2_padded(resample.upsample4_f32(base), (M, N)))
+    fband = pcc.kx_major(phasecorr.band_full_spectrum_small(bands))
     del base, bands
     kargs = (fpan, fband, hr, hc, ex_c, ex_s)
     scene = dict(
@@ -768,6 +777,77 @@ def phase_tile_stack(dev, records, lines: int = 160000):
     )
     say(f"[h] tile stack: torch.equal to plain and to the former chain; "
         f"{json.dumps(records['tile_stack'])}")
+
+
+def phase_row_fft(dev, records, tiles: int = 50):
+    """Kernel (i), the registration's row DFTs, at the 160000-line scene's
+    stacks (50 PAN tiles of (16000, 1228) -> 615 bins a row, 50 band quads
+    of (4, 4000, 307) -> 307): a tile's relative RMS error against the
+    float64 FFT of its rows at most 2e-6 and twice cuFFT's float32 error,
+    two tiles against the plain version; timed beside cuFFT's row
+    transforms (``torch.fft.rfft`` / ``fft`` over the last axis, which the
+    port no longer calls) and beside its bound, each row read once and its
+    bins written once."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch import _build
+    from opticalimageprocessor_tpu_torch.ops import row_fft
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    def rel_rms(got, want):
+        got, want = got.to(torch.complex128), want.to(torch.complex128)
+        return float((got - want).abs().pow(2).mean().sqrt()
+                     / want.abs().pow(2).mean().sqrt())
+
+    out = {}
+    for kind, shape in (("pan", (tiles, 16000, 1228)),
+                        ("band", (tiles, 4, 4000, 307))):
+        pan = kind == "pan"
+        x = torch.randint(0, 65536, shape, generator=g, device=dev,
+                          dtype=torch.int32).to(torch.float32)
+        rows = row_fft.pan_row_dft if pan else row_fft.band_row_dft
+        plain = row_fft._pan_rows_plain if pan else row_fft._band_rows_plain
+        lib = torch.fft.rfft if pan else torch.fft.fft
+        _build.reset_launch_counts()
+        got = rows(x)
+        check(_build.LAUNCHES["row_fft"] == 1, "row_fft launches a stack")
+        err = lib_err = 0.0
+        for t in range(tiles):
+            want = lib(x[t].double())
+            e, le = rel_rms(got[t], want), rel_rms(lib(x[t]), want)
+            check(e <= 2e-6 and e <= 2 * le,
+                  f"(i) {kind} tile {t}: {e:.3g} against float64 (cuFFT "
+                  f"{le:.3g})")
+            err, lib_err = max(err, e), max(lib_err, le)
+            del want
+        plain_err = max(rel_rms(got[t], plain(x[t])) for t in (0, tiles - 1))
+        check(plain_err <= 2e-6, f"(i) {kind} vs plain: {plain_err:.3g}")
+        del got
+        torch.cuda.empty_cache()
+        nbytes = x.numel() * 4 + 8 * (x.numel() // 1228 * 615 if pan
+                                      else x.numel())
+        out[kind] = dict(
+            max_rel_rms=err, cufft_rel_rms=lib_err, plain_rel_rms=plain_err,
+            ms=time_ms(lambda: rows(x), 10),
+            library_ms=time_ms(lambda: lib(x), 10),
+            plain_ms=time_ms(lambda: plain(x), 1), **bound(nbytes))
+        del x
+        torch.cuda.empty_cache()
+    pan, band = out["pan"], out["band"]
+    records["row_fft"] = dict(
+        **pan, band_ms=band["ms"], band_library_ms=band["library_ms"],
+        band_plain_ms=band["plain_ms"], band_bound_ms=band["bound_ms"],
+        band_max_rel_rms=band["max_rel_rms"],
+        library="cuFFT's row transforms: torch.fft.rfft (PAN), torch.fft.fft "
+        "(bands, with its real -> complex cast)",
+        shape=(f"the 160000-line scene's registration: {tiles} x (16000, "
+               f"1228) PAN rows -> 615 bins, {tiles} x (4, 4000, 307) band "
+               "rows -> 307 bins; max_rel_rms: a tile's largest relative "
+               "RMS error against float64"),
+    )
+    say(f"[i] row_fft: within 2e-6 and twice cuFFT's error of float64; "
+        f"{json.dumps(records['row_fft'])}")
 
 
 def f32(dev, *rows):
@@ -1164,6 +1244,8 @@ def phase_pipeline(dev, lines: int = 32768):
     for k in ("crosspower", "ky_gemm"):
         check(_build.LAUNCHES[k] == 1, f"a scene's estimate took "
               f"{_build.LAUNCHES[k]} launches of {k}, not 1")
+    check(_build.LAUNCHES["row_fft"] == 2, f"a scene's estimate took "
+          f"{_build.LAUNCHES['row_fft']} launches of row_fft, not 2")
     blocks = register_geometry(lines, W).n_sections
     check(_build.LAUNCHES["tile_stack"] == 2 * blocks,
           f"a scene's estimate took {_build.LAUNCHES['tile_stack']} "
@@ -3810,6 +3892,10 @@ def main() -> int:
         # _rrc_math, astype) into the FFT's input
         "tile_stack": ("opticalimageprocessor_tpu_torch/csrc/tile_stack.cu",
                        "opticalimageprocessor_tpu/models/device_pipeline.py:163"),
+        # not a TPU kernel: the JAX package's spectra are ops/fft_mxu's
+        # DFT as matrix products
+        "row_fft": ("opticalimageprocessor_tpu_torch/csrc/row_fft.cu",
+                    "opticalimageprocessor_tpu/models/device_pipeline.py:179"),
         # not a TPU kernel: the XLA program the JAX package runs a section
         "remap_section": (
             "opticalimageprocessor_tpu_torch/csrc/remap_section.cu",
@@ -3820,11 +3906,11 @@ def main() -> int:
         r = records[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=repl,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            launches=launches[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
-            **{k: r[k] for k in ("scene_ms", "scene_bound_ms", "gemm_only_ms",
+            **{k: r[k] for k in ("max_abs_err", "max_rel_rms",
+                                 "scene_ms", "scene_bound_ms", "gemm_only_ms",
                                  "scene_gemm_only_ms", "prestitch_ms",
                                  "prestitch_bound_ms", "align_ms",
                                  "align_bound_ms", "mss2_ms", "mss2_bound_ms",
@@ -3832,7 +3918,10 @@ def main() -> int:
                                  "shapes", "band_section_ms",
                                  "band_section_bound_ms",
                                  "band_section_library_ms", "section_peak_gb",
-                                 "raw_ms", "raw_library_ms", "raw_plain_ms")
+                                 "raw_ms", "raw_library_ms", "raw_plain_ms",
+                                 "cufft_rel_rms", "plain_rel_rms", "band_ms",
+                                 "band_library_ms", "band_plain_ms",
+                                 "band_bound_ms", "band_max_rel_rms")
                if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -46,6 +46,7 @@ LAUNCHES: dict[str, int] = {
     "remap_section": 0,
     "ky_gemm": 0,
     "tile_stack": 0,
+    "row_fft": 0,
 }
 
 _P = ctypes.c_void_p
@@ -67,6 +68,7 @@ _SIGNATURES = {
     "oip_row_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "oip_ky_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "oip_tile_stack": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
+    "oip_row_fft": [_P, _P, _P, _P, _I, _L, _I, _P],
     "oip_remap_section": [
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,

@@ -6,7 +6,8 @@ Per scene:
   estimate:  registration -- (section, slice) tiles of PAN1 and the 4 MSS
              bands, RRC'd inline and written as float32 into one tile
              stack each (kernel (h)), one batched rfft2 of the PAN tiles
-             and one fft2 of the band tiles (cuFFT), the fused
+             and one fft2 of the band tiles (kernel (i)'s row DFTs and
+             cuFFT's column transforms), the fused
              windowed cross-power of every (tile, band) (kernel (b)), the
              5x5 centroid, the 0.4 response filter and a float64 weighted
              polynomial fit; then the stt estimate on the uncorrected CMOS
@@ -50,7 +51,7 @@ from ..constants import (
     MSS_BANDS,
 )
 
-from ..ops import phasecorr
+from ..ops import phasecorr, row_fft
 from ..ops.phasecorr_cuda import windowed_crosspower_fused_tiles
 from ..ops.resample import remap_bands_interleaved, remap_const_stitch_chunked
 from ..ops.rrc import rrc_apply
@@ -192,22 +193,18 @@ def correlate_tiles(geom: RegGeometry, stacks,
     """The correlation of one slot's block of tiles: ``stacks``, the list
     of its float32 PAN tile stack (n, corr_rows, cols) and band tile stack
     (n, 4, brows, bcols), emptied as it is taken so that each stack is
-    freed once its FFT has run; one batched rfft2 of the PAN tiles (the
-    tile is the padded size: no pad), one fft2 of the band tiles and one
+    freed once its row DFTs are taken; the PAN tiles' rfft2 (the tile is
+    the padded size: no pad) and the band tiles' fft2 (on the card kernel
+    (i)'s row DFTs and cuFFT's column transforms, ``ops/row_fft``) and one
     kernel-(b) launch.  -> ``(dx, dy, rs)``, each (T, 4) float32."""
     pad = (geom.corr_rows, geom.cols)
     win = phasecorr.clamp_win(win, pad)
-    pan, band = stacks
-    stacks.clear()
-    if tuple(pan.shape[-2:]) != pad:
-        raise ValueError(f"PAN tiles {tuple(pan.shape[-2:])} are not the "
-                         f"correlation's {pad}")
-    dev = pan.device
+    if tuple(stacks[0].shape[-2:]) != pad:
+        raise ValueError(f"PAN tiles {tuple(stacks[0].shape[-2:])} are not "
+                         f"the correlation's {pad}")
+    dev = stacks[0].device
     with span("oip.register.spectra", dev):
-        fpan = torch.fft.rfft2(pan)
-        del pan
-        fband = phasecorr.band_full_spectrum_small(band)
-        del band
+        fpan, fband = row_fft.take_spectra(stacks)
     with span("oip.register.correlate", dev):
         return windowed_crosspower_fused_tiles(
             fpan, fband, pad, geom.brows, win[0], win[1]

@@ -313,9 +313,25 @@ def packed_eval_operands(n: int, keep: int, win: int, device) -> torch.Tensor:
     return pack_eval_operands(*eval_consts(n, keep, win, False, device))
 
 
+def is_kx_major(x: torch.Tensor) -> bool:
+    """Whether ``x`` (..., rows, K) is a view of contiguous (..., K, rows)
+    storage, each matrix kx-major, the layout kernel (b) reads."""
+    return x.transpose(-1, -2).is_contiguous()
+
+
+def kx_major(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., rows, K) as kernel (b) reads it: ``x`` itself where it is
+    kx-major (:func:`is_kx_major`, as ``ops/row_fft``'s spectra come), else
+    a kx-major copy."""
+    if is_kx_major(x):
+        return x
+    return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
     """Kernel (b) on CUDA tensors; ``packed`` is
-    ``pack_eval_operands(ex_c, ex_s)``.  -> ``D``, (2M, T*NB*wx) float32:
+    ``pack_eval_operands(ex_c, ex_s)``; the spectra must be kx-major
+    (:func:`is_kx_major`).  -> ``D``, (2M, T*NB*wx) float32:
     the real parts in rows 0..M-1, the imaginary parts in rows M..2M-1,
     (tile, band) pair p = tile * NB + band in columns
     :func:`stacked_columns` (p, wx), as :func:`_crosspower_plain`."""
@@ -331,7 +347,12 @@ def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
             f"{tuple(hc.shape)}, ex {tuple(ex_c.shape)}/{tuple(ex_s.shape)}"
             " do not agree"
         )
-    _build.require_cuda("windowed_crosspower_fused_tiles", fpan, fband, hr,
+    if fpan.device.type == "cuda" and not (is_kx_major(fpan)
+                                          and is_kx_major(fband)):
+        raise ValueError("crosspower: the spectra must be kx-major, views of "
+                         "(..., K, rows) storage (kx_major copies them so)")
+    _build.require_cuda("windowed_crosspower_fused_tiles",
+                        fpan.transpose(-1, -2), fband.transpose(-1, -2), hr,
                         hc, ex_c, ex_s)
     for t in (fpan, fband, hr, hc):
         if t.dtype != torch.complex64:
@@ -344,7 +365,6 @@ def _crosspower_cuda(fpan, fband, hr, hc, ex_c, ex_s, packed):
             or not packed.is_contiguous()):
         raise ValueError("crosspower: packed B is not pack_eval_operands' "
                          f"layout for keep {keep}")
-    fpan, fband = fpan.contiguous(), fband.contiguous()
     hr, hc = hr.contiguous(), hc.contiguous()
     d = torch.empty((2 * M, tiles * n_bands * wx), dtype=torch.float32,
                     device=fpan.device)
@@ -371,8 +391,10 @@ def windowed_crosspower_fused_tiles(
 
     ``fpan``: (T, M, keep) complex64 PAN half spectra; ``fband``:
     (T, NB, m_small, n_small) complex64 full band spectra, with
-    ``M = factor * m_small``.  Returns (dx, dy, response), each (T, NB),
-    with the semantics of ``phasecorr.peak_from_spectra_windowed`` fed by
+    ``M = factor * m_small`` (on the card kx-major, as ``ops/row_fft``
+    gives them: :func:`is_kx_major`; other layouts are refused).  Returns
+    (dx, dy, response), each (T, NB), with the semantics of
+    ``phasecorr.peak_from_spectra_windowed`` fed by
     ``phasecorr.upsampled_band_spectrum``.  The cross-power comes as
     ``D``, (2M, T*NB*wx) float32 with the real parts over the imaginary
     ones: on the card from kernel (b), taken to the windows by one

@@ -25,9 +25,11 @@ sections: kernels (c) and (d) read 0 past the edges of their input after
 the RRC, so a strip end sees border 0, never the RRC of a zero fill (which
 is its bias -- JAX masks its pad rows for that reason, :379-432).  No
 output row depends on its absolute index, so with the same estimates every
-raster is the resident route's, byte for byte.  The estimates are too
-wherever a transform's batch size does not change its bits (the CPU);
-cuFFT may choose other plans for other batch sizes.
+raster is the resident route's, byte for byte.  The estimates are too: on
+the CPU a transform's batch does not change its bits, and on the card
+kernel (i) sums each row in one order and cuFFT's column transforms gave
+each column the same bits whatever the tile count (1 to 50 tiles;
+``ops/row_fft``), as kernels (b) and (g) do whatever the block.
 """
 
 from __future__ import annotations

@@ -46,6 +46,7 @@ PORT_MODULES = [
     "opticalimageprocessor_tpu_torch.ops.phasecorr_cuda",
     "opticalimageprocessor_tpu_torch.ops.polyfit",
     "opticalimageprocessor_tpu_torch.ops.resample",
+    "opticalimageprocessor_tpu_torch.ops.row_fft",
     "opticalimageprocessor_tpu_torch.ops.rrc",
     "opticalimageprocessor_tpu_torch.ops.tile_stack",
     "opticalimageprocessor_tpu_torch.parallel",
