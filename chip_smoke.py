@@ -308,6 +308,30 @@ def dn_diff(a, b):
     return int(d.max()), float((d > 0).double().mean())
 
 
+def stitch_gaps_by_rows(a, skw, got, step=16384):
+    """Kernel (d)'s outputs ``got`` against ``_stitch_tail_plain`` over
+    chunks of ``step`` rows: each chunk's plain outputs from its rows and
+    the |floor(dy)| + 2 rows either side that its vertical taps reach.  The
+    largest DN difference of each output."""
+    from opticalimageprocessor_tpu_torch.ops import resample
+
+    p1, p2, *rest = a
+    rows, dy = p1.shape[0], rest[5]
+    reach = abs(int(np.floor(dy))) + 2
+    got = got if isinstance(got, tuple) else (got,)
+    worst = [0] * len(got)
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        lo, hi = max(0, r0 - reach), min(rows, r1 + reach)
+        want = resample._stitch_tail_plain(p1[lo:hi], p2[lo:hi], *rest, **skw)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            worst[i] = max(worst[i],
+                           dn_diff(g[r0:r1], w[r0 - lo:r1 - lo])[0])
+        del want
+    return worst
+
+
 def rand_params(rng, *shape):
     k = 0.98 + 0.04 * rng.random(shape)
     b = rng.normal(0, 20, shape)
@@ -513,18 +537,24 @@ def phase_kernels(dev, records):
     fold = FOLD_COLS // 2
     skw = dict(block=128, halo=16, want_prestt=False)
     worst = 0
-    for dx, dy in ((-2.7, 1.6), (14.0, 6.0), (-14.0, -6.0), (14.0, -6.0)):
-        a = (p1, p2, k1, b1, k2, b2, dx, dy, fold)
+    # the clamp edges of dx (|dx| < 120) and dy, a dx just below an integer
+    # (the column taps' offset steps at a binade edge of x + dx), and an
+    # odd fold (the stitched rows off 16-byte boundaries)
+    for dx, dy, f in ((-2.7, 1.6, fold), (14.0, 6.0, fold),
+                      (-14.0, -6.0, fold), (14.0, -6.0, fold),
+                      (119.5, 0.5, fold), (-119.5, -0.5, fold),
+                      (-3.0001, 1.6, fold), (0.0, 0.0, fold + 1)):
+        a = (p1, p2, k1, b1, k2, b2, dx, dy, f)
         got = resample._stitch_tail_cuda(*a, **skw)
         plain = resample._stitch_tail_plain(*a, **skw)
         torch.cuda.synchronize()
-        left = W - fold
+        left = W - f
         check(bool((got[:, :left].to(torch.int32)
                     == plain[:, :left].to(torch.int32)).all()),
-              f"stitch left half not byte-exact at {(dx, dy)}")
+              f"stitch left half not byte-exact at {(dx, dy, f)}")
         dmax, share = dn_diff(got[:, left:], plain[:, left:])
-        say(f"[d] stitch_tail dx {dx} dy {dy}: left exact, right max "
-            f"{dmax} DN on {share:.4%}")
+        say(f"[d] stitch_tail dx {dx} dy {dy} fold {f}: left exact, right "
+            f"max {dmax} DN on {share:.4%}")
         check(dmax == 0, "stitch right half vs plain")
         worst = max(worst, dmax)
     a = (p1, p2, k1, b1, k2, b2, -2.7, 1.6, fold)
@@ -590,6 +620,31 @@ def phase_kernels(dev, records):
     say(f"[d] streamed section shape: {json.dumps(section)}")
     records["stitch_tail"].update(section_ms=section["ms"],
                                   section_bound_ms=section["bound_ms"])
+    # the benchmark's scenes: 160000 rows, without prestt (the scene cell)
+    # and with it (the dual cell), each output byte for byte against the
+    # plain reference (taken in row chunks)
+    rows = 160000
+    p1 = torch.randint(0, 65536, (rows, W), device=dev,
+                       dtype=torch.int32).to(torch.uint16)
+    p2 = torch.randint(0, 65536, (rows, W), device=dev,
+                       dtype=torch.int32).to(torch.uint16)
+    a = (p1, p2, k1, b1, k2, b2, -2.7, 1.6, fold)
+    for tag, want in (("scene160k", False), ("dual160k", True)):
+        skw = dict(block=128, halo=16, want_prestt=want)
+        got = resample._stitch_tail_cuda(*a, **skw)
+        gaps = stitch_gaps_by_rows(a, skw, got)
+        del got
+        torch.cuda.empty_cache()
+        say(f"[d] {tag} vs plain: max DN {gaps} (stitched, prestt)")
+        check(gaps == [0] * (2 if want else 1),
+              f"stitch tail at 160000 rows vs plain ({tag})")
+        ms = time_ms(lambda: resample._stitch_tail_cuda(*a, **skw), 10)
+        bnd = stitch_bound(rows, W, fold, want_prestt=want)
+        say(f"[d] {tag}: {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms")
+        records["stitch_tail"].update({f"{tag}_ms": ms,
+                                       f"{tag}_bound_ms": bnd["bound_ms"]})
+    del p1, p2, a
+    torch.cuda.empty_cache()
 
     phase_row_pass(dev, rng, records)
 

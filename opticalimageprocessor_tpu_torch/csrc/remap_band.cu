@@ -82,14 +82,6 @@ __device__ __forceinline__ float u16_to_float(uint32_t u) {
   return __fsub_rn(__uint_as_float(0x4B000000u | u), 8388608.0f);
 }
 
-// oip_round_u16 (rint, clip to [0, 65535]) as bits in the low half of the
-// result: clipping first is the same on [0, 65535], and adding 1.5 * 2^23
-// rounds half to even into the low mantissa bits
-__device__ __forceinline__ uint32_t round_u16_bits(float v) {
-  return __float_as_uint(
-      __fadd_rn(fminf(fmaxf(v, 0.0f), 65535.0f), 12582912.0f));
-}
-
 // w[s] <- w[s + k] (0 where s + k leaves [0, 4)): the taps of a window
 // that starts k columns later
 __device__ __forceinline__ void shift_weights(float w[4], int k) {
@@ -165,7 +157,7 @@ __device__ __forceinline__ void compute_row(const uint16_t* ring, Pairs& P,
       acc = __fadd_rn(acc, __fmul_rn(P.win[p][(J + 2) & 3], P.wv[p][1]));
       acc = __fadd_rn(acc, __fmul_rn(P.win[p][(J + 3) & 3], P.wv[p][2]));
       acc = __fadd_rn(acc, __fmul_rn(P.win[p][J], P.wv[p][3]));
-      v[p] = round_u16_bits(acc);
+      v[p] = oip_round_u16_bits(acc);
     }
     *reinterpret_cast<uint2*>(d) = make_uint2(
         __byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410));

@@ -1,4 +1,5 @@
-// Cubic weights and column taps shared by the band remap (remap_band.cu)
+// Cubic weights, column taps and the rounding of a resampled value, shared
+// by the band remap (remap_band.cu), the parity remap (remap_section.cu)
 // and the stitch tail (stitch_tail.cu).
 //
 // Every float32 operation is written as an _rn intrinsic so that nvcc
@@ -56,22 +57,11 @@ __device__ __forceinline__ int oip_col_taps(int x, float cx0, float cx1,
   return loc0;
 }
 
-// Column pass of one window row: sum_b w[b] * row[loc0 + b] in tap order,
-// starting from 0 like the reference's matrix product.  Dropped taps have
-// weight 0 and read a clamped in-window index.
-template <typename T>
-__device__ __forceinline__ float oip_col_interp(const T* row, int loc0,
-                                                const float w[4],
-                                                int win_cols) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int l = min(max(loc0 + b, 0), win_cols - 1);
-    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(row[l]), w[b]));
-  }
-  return acc;
-}
-
-__device__ __forceinline__ unsigned short oip_round_u16(float v) {
-  return static_cast<unsigned short>(fminf(fmaxf(rintf(v), 0.0f), 65535.0f));
+// The reference's rounding of a resampled value, (uint16) clip(rint(v), 0,
+// 65535), in the low 16 bits of the result: clipping first is the same on
+// [0, 65535] (NaN -> 0), and adding 1.5 * 2^23 rounds half to even into
+// the low mantissa bits (no type conversion)
+__device__ __forceinline__ unsigned int oip_round_u16_bits(float v) {
+  return __float_as_uint(
+      __fadd_rn(fminf(fmaxf(v, 0.0f), 65535.0f), 12582912.0f));
 }

@@ -1,5 +1,7 @@
 // Relative radiometric correction of one pixel, shared by the RRC kernel
-// (rrc.cu) and the stitch tail (stitch_tail.cu).
+// (rrc.cu) and the tile stack (tile_stack.cu); the stitch tail
+// (stitch_tail.cu) computes the same function with one type conversion
+// (st_rrc).
 //
 // Reference semantics (imageop.h:129-138): dst = (uint16_t)(k * src + b)
 // with k, b C doubles on an x86-64 build: a double multiply, then a double

@@ -559,6 +559,10 @@ def _stitch_tail_cuda(pan1, pan2, k1, b1, k2, b2, dx, dy, fold, block, halo,
     if any(t.dtype != torch.float64 for t in (k1, b1, k2, b2)):
         raise ValueError("remap_const_stitch_chunked: k, b must be float64")
     pan1, pan2 = pan1.contiguous(), pan2.contiguous()
+    if pan1.data_ptr() % 16 or pan2.data_ptr() % 16:
+        # the kernel copies and loads the PANs 16 bytes at a time
+        raise ValueError("remap_const_stitch_chunked: kernel (d) takes PANs "
+                         "that start on a 16-byte boundary")
     rows, width = pan1.shape
     dev = pan1.device
     stitched = torch.empty((rows, 2 * (width - fold)), dtype=torch.uint16,
