@@ -13,7 +13,9 @@ PyTorch versions):
 * ``scene`` (the whole scene in one run): takes every flag of the JAX
   CLI's ``scene`` and runs its checks; runs the resident route, or with
   ``--stream`` the streamed one, each with or without ``--mss2`` (the
-  whole sample-task workflow).
+  whole sample-task workflow), in the fast route's semantics; with
+  ``--parity`` (one device, in either ``--coord-mode``) in the reference
+  binary's own, those of the file commands' parity route.
 
 ``--profile DIR`` on the default action, ``prestitch`` and ``scene``
 writes a torch.profiler trace of the run into DIR.  ``--mesh N`` on the
@@ -354,9 +356,10 @@ def _scene(argv) -> int:
         prog="oiptorch scene",
         description=(
             "Whole-scene pipeline: RRC + registration + alignment + "
-            "prestitch + stitch in one run (fast-mode semantics; the "
-            "scene must fit in device memory unless --stream, or in the "
-            "mesh's with --mesh N)"
+            "prestitch + stitch in one run, in fast-mode semantics or, "
+            "with --parity, the reference's own (the scene must fit in "
+            "device memory unless --stream, or in the mesh's with "
+            "--mesh N)"
         ),
     )
     p.add_argument("--pan1", required=True, help="CMOS1 PAN raw image")
@@ -394,6 +397,18 @@ def _scene(argv) -> int:
                         "at once, one a device)")
     p.add_argument("--stream-section-lines", type=int, default=4096,
                    help="PAN lines per streamed section (with --stream)")
+    p.add_argument("--parity", action="store_true", default=False,
+                   help="the reference binary's own semantics on one "
+                        "device (the parity route of prestitch, the "
+                        "default action with --do-rrc4pan and stitch: "
+                        "full-surface phase correlation, cv::resize and "
+                        "cv::remap in the reference's sections), in place "
+                        "of the fast route's")
+    p.add_argument("--coord-mode", choices=["continuous", "quantized"],
+                   default="continuous",
+                   help="coordinate convention of --parity's resample: "
+                        "OpenCV 5.x continuous, or OpenCV <= 4.x's 1/32-px "
+                        "grid (the fast route ignores it)")
     p.add_argument("--profile", default="", metavar="DIR",
                    help=_PROFILE_HELP)
     p.add_argument("--device", default="cuda",
@@ -412,6 +427,16 @@ def _scene(argv) -> int:
         raise UsageError("--rrc-m2b* needs --mss2")
     if a.out_mss and not a.mss2:
         raise UsageError("--out-mss needs --mss2")
+    if a.parity:
+        for flag, on, why in (
+            ("--mesh", a.mesh, "the line mesh runs the fast route"),
+            ("--stream", a.stream, "the streamed sections run the fast "
+                                   "route"),
+            ("--mss2", a.mss2, "CMOS2's alignment runs the fast route"),
+        ):
+            if on:
+                raise UsageError(f"--parity runs on one device from "
+                                 f"resident strips, without {flag}: {why}")
     for opt, f in (
         ("--pan1", a.pan1), ("--pan2", a.pan2), ("--mss", a.mss),
         ("--mss2", a.mss2),
@@ -430,7 +455,19 @@ def _scene(argv) -> int:
         out_stitched_mss=a.out_mss, out_dir=a.out_dir, device=a.device,
         profile_dir=a.profile, mesh=a.mesh,
     )
-    if a.stream:
+    if a.parity:
+        from .models.scene import run_parity_scene
+
+        run_parity_scene(
+            a.pan1, a.pan2, a.mss, a.rrc_pan1, a.rrc_pan2, rrc_mss,
+            slices=a.slices, sections=a.ibc_sections or None,
+            fold_cols=a.fold_cols, stt_sections=a.stt_sections,
+            threshold=a.ibc_threshold, stt_threshold=a.stt_threshold,
+            stt_max_delta_y=a.stt_maxdeltay, out_stitched=a.out,
+            out_dir=a.out_dir, device=a.device, profile_dir=a.profile,
+            quantized_coords=a.coord_mode == "quantized",
+        )
+    elif a.stream:
         from .models.scene_stream import run_scene_streamed
 
         run_scene_streamed(

@@ -31,6 +31,16 @@ uploads of the sampled rows) or the line-sharded strip
 and windows over the sources' device slots, so every route cuts the same
 tiles and gets the resident route's estimates bit for bit.
 
+:class:`ParityScenePipeline` runs the same sample task in the reference
+binary's own semantics, those of the file commands' parity route
+(``prestitch``, the default action with ``--do-rrc4pan``, ``stitch``), on
+resident strips: the same two drivers with the reference's tile grid
+(:func:`reference_geometry`), full-surface ``cv::phaseCorrelate`` of the
+x4 ``cv::resize``'d band tiles (:func:`correlate_surfaces`) and of the
+stt windows, the file routes' float64 fit and average on the host, then
+``cv::remap`` INTER_CUBIC (kernel (f)) over the reference's two section
+loops and the seam concat.
+
 The JAX package's TPU workarounds are not ported: cuFFT replaces the DFT
 done as matrix multiplies (``ops/fft_mxu``) and float64 the double-word
 float32 fit (``ops/ddf32``).
@@ -41,6 +51,7 @@ from __future__ import annotations
 import itertools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -48,15 +59,34 @@ from ..constants import (
     CORRELATION_LINES,
     IBCV_DEF_THRESHOLD,
     IBCV_MIN_COUNT,
+    IBCV_MIN_SLICES,
+    IBPA_DEFAULT_BATCHLINES,
+    IBPA_DEFAULT_LINEOVERLAP,
+    IBPA_MAX_LINEOVERLAP,
+    IBPA_MIN_PROCESSLINES,
     MSS_BANDS,
+    REMAP_SECTION_ROWS,
+    STT_DEF_SECLINES,
 )
 
-from ..ops import phasecorr, row_fft
+from ..ops import phasecorr, polyfit, row_fft
 from ..ops.phasecorr_cuda import windowed_crosspower_fused_tiles
-from ..ops.resample import remap_bands_interleaved, remap_const_stitch_chunked
+from ..ops.resample import (
+    SectionCut,
+    ibpa_plan,
+    plan_for_band_alignment,
+    plan_for_constant_shift,
+    prepare_remap_section,
+    remap_bands_interleaved,
+    remap_const_stitch_chunked,
+    remap_section_u16,
+    resize_cubic_f32,
+    sectionary_plan,
+    upsample4_f32,
+)
 from ..ops.rrc import rrc_apply
 from ..ops.tile_stack import write_tiles
-from ..utils.logging import SCENE_SPAN, span, to_host
+from ..utils.logging import SCENE_SPAN, count, olog, rlog, span, to_host
 
 RRCParams = tuple[torch.Tensor, torch.Tensor]
 
@@ -99,9 +129,12 @@ def _cols(params, c0: int, c1: int):
 @dataclass(frozen=True)
 class RegGeometry:
     """Where registration samples a (lines, width) PAN strip: ``n_sections``
-    row blocks of ``corr_rows`` lines, ``sec_stride`` apart, each cut into
-    ``slices`` tiles of ``cols`` columns; the band tiles are ``brows`` x
-    ``bcols`` at the same place in band pixels."""
+    row blocks of ``corr_rows`` lines, ``sec_stride`` apart from line
+    ``first_row``, each cut into ``slices`` tiles of ``cols`` columns; the
+    band tiles are ``brows`` x ``bcols`` at the same place in band pixels
+    (the PAN line over 4), or, with ``band_stride``, ``band_stride`` apart
+    from band line ``band_first_row`` (the reference's own bookkeeping,
+    :func:`reference_geometry`)."""
 
     slices: int
     n_sections: int
@@ -110,10 +143,19 @@ class RegGeometry:
     cols: int
     bcols: int
     brows: int
+    first_row: int = 0
+    band_first_row: int = 0
+    band_stride: int | None = None
 
     def row0(self, sec: int) -> int:
         """First PAN line of section ``sec``'s row block."""
-        return sec * self.sec_stride
+        return self.first_row + sec * self.sec_stride
+
+    def band_row0(self, sec: int) -> int:
+        """First band line of section ``sec``'s row block."""
+        if self.band_stride is None:
+            return self.row0(sec) // MSS_BANDS
+        return self.band_first_row + sec * self.band_stride
 
 
 def register_geometry(lines_pan: int, width: int, slices: int = 10,
@@ -136,6 +178,56 @@ def register_geometry(lines_pan: int, width: int, slices: int = 10,
     )
     return RegGeometry(slices, n_sections, corr_rows, sec_stride, cols,
                        cols // MSS_BANDS, corr_rows // MSS_BANDS)
+
+
+def ibc_geometry(lines_pan: int, width: int, slices: int, sections: int):
+    """The reference's sections x slices tile grid and its argument checks
+    (CalcInterBandCorrelation, preproc.h:224-259): ``min(lines, 16000)``-line
+    windows spaced by equal gaps along the strip, each cut into ``slices``
+    column slices; the MSS window offsets use the same integer-divided-by-4
+    bookkeeping.  -> (r0s, br0s, base_rows, band_rows, cols, band_cols,
+    centers), ``centers[t]`` the slice-centre x of tile ``t``
+    (section-major, slice-minor: the reference's sample order)."""
+    if slices < IBCV_MIN_SLICES:
+        raise ValueError(
+            f"CalcInterBandCorrelation: at lease {IBCV_MIN_SLICES} "
+            "slice needed"
+        )
+    if sections <= 0:
+        raise ValueError(
+            "CalcInterBandCorrelation: section count should be a "
+            "positive integer"
+        )
+    if sections > 1 and sections * CORRELATION_LINES > lines_pan:
+        raise ValueError(
+            "CalcInterBandCorrelation: too many sections "
+            f"({CORRELATION_LINES} lines per section), not enough total "
+            "PAN data lines"
+        )
+    base_rows = min(lines_pan, CORRELATION_LINES)
+    base_gap = (lines_pan - base_rows * sections) // (sections + 1)
+    cols = width // slices
+    band_rows = base_rows // MSS_BANDS
+    band_gap = base_gap // MSS_BANDS
+    band_cols = cols // MSS_BANDS
+    r0s = [base_gap + sec * (base_rows + base_gap) for sec in range(sections)]
+    br0s = [band_gap + sec * (band_rows + band_gap) for sec in range(sections)]
+    centers = [i * cols + cols // 2 for i in range(slices)] * sections
+    return r0s, br0s, base_rows, band_rows, cols, band_cols, centers
+
+
+def reference_geometry(lines_pan: int, width: int, slices: int,
+                       sections: int) -> RegGeometry:
+    """The reference's tile grid (:func:`ibc_geometry`, with its argument
+    checks) as a :class:`RegGeometry`: ``min(lines, 16000)``-line row
+    blocks, unrounded, spaced by equal gaps from the first gap on, the
+    band blocks at the reference's own integer-divided gaps."""
+    r0s, br0s, base_rows, band_rows, cols, band_cols, _ = ibc_geometry(
+        lines_pan, width, slices, sections)
+    return RegGeometry(slices, sections, base_rows, base_rows + r0s[0],
+                       cols, band_cols, band_rows, first_row=r0s[0],
+                       band_first_row=br0s[0],
+                       band_stride=band_rows + br0s[0])
 
 
 def tile_blocks(n_tiles: int, n_slots: int) -> list[tuple[int, int]]:
@@ -228,10 +320,63 @@ def fit_tiles(geom: RegGeometry, dx, dy, rs,
     return [(coeff_x[b], coeff_y[b]) for b in range(MSS_BANDS)], n_valid
 
 
+def correlate_surfaces(geom: RegGeometry, stacks, win=None):
+    """The reference's correlation of one slot's block of tiles
+    (CalcInterBandCorrelation, preproc.h:260-347): ``stacks`` as
+    :func:`correlate_tiles` takes them, one tile at a time (its 4 band
+    tiles brought up x4 by ``cv::resize`` INTER_CUBIC,
+    :func:`~..ops.resample.upsample4_f32`, or to the PAN tile's size where
+    that is not 4 times theirs, in an ``oip.upsample`` span), then the
+    full-surface ``cv::phaseCorrelate`` of the PAN tile against each
+    (:func:`~..ops.phasecorr.phase_correlate_tiles`): the file route's
+    one tile a group, so the bits match it wherever an FFT's do not depend
+    on its batch.  ``win`` is unused (the whole surface is searched).  ->
+    ``(dx, dy, rs)``, each (T, 4) float32."""
+    pan, bands = stacks
+    stacks.clear()
+    h, w = pan.shape[-2:]
+    outs = []
+    for t in range(pan.shape[0]):
+        with span("oip.upsample", pan.device):
+            band = bands[t:t + 1]
+            if band.shape[-2] * MSS_BANDS == h and \
+                    band.shape[-1] * MSS_BANDS == w:
+                up = upsample4_f32(band)
+            else:
+                up = resize_cubic_f32(band, h, w)
+        outs.append(phasecorr.phase_correlate_tiles(pan[t:t + 1], up))
+        del up
+    return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+
+def fit_tiles_host(geom: RegGeometry, dx, dy, rs,
+                   threshold: float = IBCV_DEF_THRESHOLD):
+    """The file route's filter and fit of the registration
+    (``PreProcessor._fit``, preproc.h:492-550): the (T, 4) statistics read
+    back to the host, each band's samples with response >= ``threshold``
+    fitted in float64 by ``ops/polyfit`` (the reference's error where
+    fewer than IBCV_MIN_COUNT pass).  -> ``(coeffs, n_valid)`` as
+    :func:`fit_tiles` gives them, float64 on the CPU."""
+    with span("oip.register.fit", dx.device):
+        stats = to_host(torch.stack([dx, dy, rs])).numpy().astype(np.float64)
+        centers = np.array([i * geom.cols + geom.cols // 2
+                            for i in range(geom.slices)] * geom.n_sections,
+                           np.float64)
+        coeffs = [tuple(torch.from_numpy(c) for c in
+                        polyfit.fit_shift_models_filtered(
+                            centers, stats[0][:, b], stats[1][:, b],
+                            stats[2][:, b], threshold, b + 1))
+                  for b in range(MSS_BANDS)]
+        n_valid = torch.from_numpy((stats[2] >= threshold).sum(axis=0)).to(
+            torch.int32)
+    return coeffs, n_valid
+
+
 def register_rows(geom: RegGeometry, pan, bands, devices,
                   rrc: dict | None = None, gather=_one_block,
                   win: tuple[int, int] = (64, 64),
-                  threshold: float = IBCV_DEF_THRESHOLD):
+                  threshold: float = IBCV_DEF_THRESHOLD,
+                  correlate=None, fit=None):
     """The registration on row sources (:class:`StripRows`, a strip file's
     uploads, a ``parallel.mesh.LineSharded``): ``pan`` (L, W) and ``bands``
     (4, L/4, W/4) uint16, RAW where ``rrc[device]`` gives their ``(k, b)``
@@ -243,20 +388,25 @@ def register_rows(geom: RegGeometry, pan, bands, devices,
     process's and is skipped).  Each block is cut from the rows its slot
     fetches, a run of tiles a section, straight into one float32 stack of
     its PAN tiles and one of its band tiles (:func:`write_tiles`), and
-    correlated on its device (:func:`correlate_tiles`) before the next
-    block's rows are taken, so one block's tiles are alive at a time.
-    ``gather`` takes the blocks' (dx, dy, rs) to one (T, 4) each in tile
-    order, and :func:`fit_tiles` fits them.  -> ``(cx (4, 2), cy (4, 3),
+    correlated on its device by ``correlate`` (by default
+    :func:`correlate_tiles`; the reference's :func:`correlate_surfaces`)
+    before the next block's rows are taken, so one block's tiles are alive
+    at a time.  ``gather`` takes the blocks' (dx, dy, rs) to one (T, 4)
+    each in tile order, and ``fit`` (by default :func:`fit_tiles`;
+    :func:`fit_tiles_host`) fits them.  -> ``(cx (4, 2), cy (4, 3),
     n_valid (4,))``.  Plans that cut the same tiles give bit-identical
     estimates wherever the FFTs' bits do not depend on their batch."""
+    # the defaults are looked up at call time, where a caller may have
+    # replaced them
+    correlate = correlate or correlate_tiles
+    fit = fit or fit_tiles
     runs = tile_runs(tile_blocks(geom.n_sections * geom.slices,
                                  len(devices)), geom.slices)
     pan_blks = pan.fetch([
         (d, geom.row0(sec), geom.row0(sec) + geom.corr_rows,
          (i0 * geom.cols, i1 * geom.cols)) for d, sec, i0, i1 in runs])
     band_blks = bands.fetch([
-        (d, geom.row0(sec) // MSS_BANDS,
-         geom.row0(sec) // MSS_BANDS + geom.brows,
+        (d, geom.band_row0(sec), geom.band_row0(sec) + geom.brows,
          (i0 * geom.bcols, i1 * geom.bcols)) for d, sec, i0, i1 in runs])
     stats = []
     for d, block in itertools.groupby(runs, key=lambda r: r[0]):
@@ -283,8 +433,8 @@ def register_rows(geom: RegGeometry, pan, bands, devices,
                             _cols(bp, i0 * geom.bcols, i1 * geom.bcols),
                             geom.bcols)
                 t0 += i1 - i0
-        stats.append(correlate_tiles(geom, stacks, win))
-    coeffs, n_valid = fit_tiles(geom, *gather(stats), threshold)
+        stats.append(correlate(geom, stacks, win))
+    coeffs, n_valid = fit(geom, *gather(stats), threshold)
     return (torch.stack([c[0] for c in coeffs]),
             torch.stack([c[1] for c in coeffs]), n_valid)
 
@@ -384,20 +534,82 @@ def stt_average(dx, dy, rs, threshold: float = IBCV_DEF_THRESHOLD,
     )
 
 
+def _delta_ok(dy: float, r: float, threshold: float,
+              max_delta_y: float) -> bool:
+    return r >= threshold and (max_delta_y <= 0.0 or abs(dy) <= max_delta_y)
+
+
+def valid_delta_mean(dxs, dys, rss, threshold: float, max_delta_y: float):
+    """The per-section deltas' filter and float64 mean (stitcher.h:163-200):
+    valid = response >= ``threshold`` and, when ``max_delta_y`` > 0,
+    |dy| <= ``max_delta_y``; the valid ones summed in section order.  ->
+    (the count of valid sections, (mean dx, mean dy, mean response)); the
+    reference's "No valid delta value found" error when none survive."""
+    sx = sy = sr = 0.0
+    valid = 0
+    for dx, dy, r in zip(dxs, dys, rss):
+        if _delta_ok(float(dy), float(r), threshold, max_delta_y):
+            sx += float(dx)
+            sy += float(dy)
+            sr += float(r)
+            valid += 1
+    if valid == 0:
+        raise RuntimeError(
+            "No valid delta value found for stitching parameter calculating"
+        )
+    return valid, (sx / valid, sy / valid, sr / valid)
+
+
+def average_valid_deltas(
+    dxs, dys, rss, offs, threshold: float, max_delta_y: float
+) -> tuple[float, float, float]:
+    """:func:`valid_delta_mean`, after the reference's QA table, and its
+    summary logged, as the JAX package's ``models/stitcher.py`` does."""
+    olog("Calculating stitching delta values ...")
+    rlog("| offset |  delta x |  delta y | response | r |")
+    for o, dx, dy, r in zip(offs, dxs, dys, rss):
+        dx, dy, r = float(dx), float(dy), float(r)
+        rlog("|%7d |%10.4f|%10.4f|%10.4f|%s|", o, dx, dy, r,
+             " ok " if _delta_ok(dy, r, threshold, max_delta_y) else " x ")
+    valid, mean = valid_delta_mean(dxs, dys, rss, threshold, max_delta_y)
+    olog(
+        "Total %d valid delta value pairs found, everage value: "
+        "dx: %.5f, dy: %.5f, r: %.5f",
+        valid, *mean,
+    )
+    return mean
+
+
+def stt_average_host(dx, dy, rs, threshold: float = IBCV_DEF_THRESHOLD,
+                     max_delta_y: float = 0.0):
+    """The file route's average (``Stitcher.calc_stt_parameters``): the
+    (n,) statistics read back to the host and averaged in float64
+    (:func:`valid_delta_mean`: the reference's error where none is
+    valid).  -> ``(delta_x, delta_y, response, n_valid)``, host
+    numbers."""
+    valid, mean = valid_delta_mean(
+        *to_host(torch.stack([dx, dy, rs])).numpy(), threshold, max_delta_y)
+    return (*mean, valid)
+
+
 def stt_rows(pan1, pan2, devices, sections: int = 10,
              line_per_section: int | None = None, overlap_cols: int = 200,
              edge_cols: int = 0, threshold: float = IBCV_DEF_THRESHOLD,
              max_delta_y: float = 0.0, win: tuple[int, int] = (64, 64),
-             gather=_one_block):
+             gather=_one_block, geometry=None, peaks=None, average=None):
     """The stt estimate on row sources (as :func:`register_rows` takes
-    them): ``sections`` windows (:func:`stt_geometry`) of PAN1's right
-    overlap strip and PAN2's left one, a contiguous block of sections on
-    each of the ``devices`` slots, each window cast to float32 and the
-    block's windows stacked; their peaks (:func:`stt_peaks`), gathered in
-    section order by ``gather``, averaged (:func:`stt_average`).  -> as
-    :func:`stt_estimate_fast`."""
+    them): ``sections`` windows (``geometry``, :func:`stt_geometry`) of
+    PAN1's right overlap strip and PAN2's left one, a contiguous block of
+    sections on each of the ``devices`` slots, each window cast to float32
+    and the block's windows stacked; their peaks (``peaks``,
+    :func:`stt_peaks`), gathered in section order by ``gather``, averaged
+    (``average``, :func:`stt_average`); each default is looked up at call
+    time.  -> as :func:`stt_estimate_fast`."""
+    geometry = geometry or stt_geometry
+    peaks = peaks or stt_peaks
+    average = average or stt_average
     lines, width = pan1.shape[-2:]
-    lps, offs = stt_geometry(lines, sections, line_per_section)
+    lps, offs = geometry(lines, sections, line_per_section)
     plan = [(d, o, o + lps)
             for d, (s0, s1) in enumerate(tile_blocks(sections, len(devices)))
             for o in offs[s0:s1]]
@@ -406,7 +618,7 @@ def stt_rows(pan1, pan2, devices, sections: int = 10,
                       for strip, cols in (
                           (pan1, (width - overlap_cols, width - edge_cols)),
                           (pan2, (edge_cols, overlap_cols))))
-        peaks = []
+        outs = []
         for d, group in itertools.groupby(zip(plan, win1, win2),
                                           key=lambda g: g[0][0]):
             group = list(group)
@@ -414,8 +626,8 @@ def stt_rows(pan1, pan2, devices, sections: int = 10,
                 continue
             t1, t2 = (torch.stack([g[k].to(torch.float32) for g in group])
                       for k in (1, 2))
-            peaks.append(stt_peaks(t1, t2, win))
-        return stt_average(*gather(peaks), threshold, max_delta_y)
+            outs.append(peaks(t1, t2, win))
+        return average(*gather(outs), threshold, max_delta_y)
 
 
 def stt_estimate_fast(
@@ -700,6 +912,244 @@ class DualScenePipeline(nn.Module):
             dxs, dys = pipe.clamp_stt(raw_dx, raw_dy)
         return (aligned, stitched, aligned2, stitched_mss, n_valid, n_stt,
                 n_valid2, (cx, cy, dxs, dys, raw_dx, raw_dy), fit2)
+
+
+def parity_stt_windows(lines: int, sections: int,
+                       line_per_section: int | None = None):
+    """The file route's stt windows (``Stitcher``): ``line_per_section``
+    lines (None: ``min(STT_DEF_SECLINES, lines // sections)``), unrounded,
+    at :func:`stt_offsets`; the reference's error where they do not fit
+    the strip.  -> ``(lps, offs)``, as :func:`stt_geometry` gives them."""
+    lps = line_per_section or min(STT_DEF_SECLINES, lines // sections)
+    if lps <= 0 or sections * lps > lines:
+        raise ValueError(
+            "PAN line count less than sections times line-per-section, "
+            "use smaller -s and/or -l value(s)"
+        )
+    return lps, stt_offsets(lines, sections, lps)
+
+
+def stt_surface_peaks(t1, t2, win=None):
+    """The stt windows' full-surface ``cv::phaseCorrelate``
+    (CalcSttParameters, :func:`~..ops.phasecorr.phase_correlate_batch`);
+    ``win`` is unused."""
+    return phasecorr.phase_correlate_batch(t1, t2)
+
+
+STITCH_ROWS = 8192   # PAN1 rows a step of the parity stitch
+
+
+class ParityScenePipeline(nn.Module):
+    """The reference's own sample task (``DOC/sample-task.sh`` steps 2-4 in
+    the binary's default semantics) on device-resident strips, as one
+    module: the file commands' parity route -- ``prestitch``, the default
+    action with ``--do-rrc4pan`` and ``stitch -c`` -- with the strips and
+    every product on the device.  The RRC parameters are its buffers.
+
+    :meth:`estimate`: the registration through :func:`register_rows` on
+    the reference's tile grid (:func:`reference_geometry`), the PAN and
+    band tiles RRC'd as they are cut (kernel (h)), each band tile brought
+    up x4 by ``cv::resize`` and correlated against its PAN tile over the
+    whole surface (:func:`correlate_surfaces`), the file route's float64
+    fit (:func:`fit_tiles_host`); the stt through :func:`stt_rows` on the
+    uncorrected overlap strips, full-surface (:func:`stt_surface_peaks`)
+    and averaged as ``Stitcher.calc_stt_parameters`` averages it.  The stt
+    is not clamped.  Both read their statistics back to the host, where
+    the fits and the remap plans are made.
+
+    :meth:`transform`: RRC (kernel (a)) of the bands and both PANs; the
+    bands' alignment sections (:func:`~..ops.resample.ibpa_plan`) and
+    PAN2's SectionaryRemap with its rolling-buffer bottom cut
+    (:func:`~..ops.resample.sectionary_plan`), each section a
+    ``cv::remap`` INTER_CUBIC call (kernel (f)) on views of the RRC'd
+    strips, in ``quantized_coords`` (OpenCV <= 4.x's 1/32-px grid) or
+    continuous coordinates; the stitch's seam concat of RRC'd PAN1 and the
+    prestitched PAN2, ``fold`` columns off each.
+
+    :meth:`forward` raises the reference's errors where a band has too few
+    valid tiles or no stt window is valid; :meth:`check` raises its
+    argument errors for a strip's sizes (the ``scene --parity`` command
+    calls it before any device work).  A band strip too short for one
+    alignment section gives rows of 0, as the reference's loop would."""
+
+    def __init__(
+        self,
+        pan1_params: RRCParams,
+        pan2_params: RRCParams,
+        mss_params: RRCParams,
+        slices: int = 10,
+        n_sections: int | None = None,
+        threshold: float = IBCV_DEF_THRESHOLD,
+        stt_sections: int = 10,
+        stt_lines: int | None = None,
+        overlap_cols: int = 200,
+        edge_cols: int = 0,
+        stt_threshold: float = IBCV_DEF_THRESHOLD,
+        stt_max_delta_y: float = 0.0,
+        fold: int = 100,
+        remap_section_rows: int = REMAP_SECTION_ROWS,
+        line_per_section: int = IBPA_DEFAULT_BATCHLINES,
+        section_overlap: int = IBPA_DEFAULT_LINEOVERLAP,
+        quantized_coords: bool = False,
+    ):
+        super().__init__()
+        f64 = torch.float64
+        for name, (k, b) in (
+            ("pan1", pan1_params), ("pan2", pan2_params), ("mss", mss_params)
+        ):
+            self.register_buffer(f"{name}_k", torch.as_tensor(k, dtype=f64))
+            self.register_buffer(f"{name}_b", torch.as_tensor(b, dtype=f64))
+        self.slices = slices
+        self.n_sections = n_sections
+        self.threshold = threshold
+        self.stt_sections = stt_sections
+        self.stt_lines = stt_lines
+        self.overlap_cols = overlap_cols
+        self.edge_cols = edge_cols
+        self.stt_threshold = stt_threshold
+        self.stt_max_delta_y = stt_max_delta_y
+        self.fold = fold
+        self.remap_section_rows = remap_section_rows
+        self.line_per_section = line_per_section
+        self.section_overlap = section_overlap
+        self.quantized_coords = quantized_coords
+
+    def geometry(self, lines: int, width: int) -> RegGeometry:
+        """The registration's tile grid on a (lines, width) PAN strip
+        (``n_sections`` None: as many as the strip holds, at most 5)."""
+        sections = self.n_sections or max(
+            1, min(5, lines // CORRELATION_LINES))
+        return reference_geometry(lines, width, self.slices, sections)
+
+    def check(self, lines_pan: int, width: int, lines_mss: int) -> None:
+        """The reference's argument errors for strips of these sizes: the
+        tile grid's, the stt windows', the alignment sections'
+        (DoInterBandAlignment, preproc.h:351-372)."""
+        self.geometry(lines_pan, width)
+        parity_stt_windows(lines_pan, self.stt_sections, self.stt_lines)
+        if self.section_overlap > IBPA_MAX_LINEOVERLAP:
+            raise ValueError(
+                f"Overlap value {self.section_overlap} exceeds maximum "
+                f"allowed value({IBPA_MAX_LINEOVERLAP})")
+        if self.line_per_section < self.section_overlap * 2:
+            raise ValueError(
+                "Lines per section too small or section overlapped lines "
+                "too large")
+        if lines_mss < IBPA_MIN_PROCESSLINES:
+            raise ValueError("Too few image lines left to process")
+
+    def estimate(self, pan1, pan2, mss):
+        """-> (cx (4, 2), cy (4, 3) float64 and n_valid (4,) int32 on the
+        host, raw_dx, raw_dy, n_stt host numbers)."""
+        dev = pan1.device
+        lines, width = pan1.shape
+        with span("oip.estimate", dev):
+            cx, cy, n_valid = register_rows(
+                self.geometry(lines, width), StripRows(pan1), StripRows(mss),
+                [dev], {dev: ((self.pan1_k, self.pan1_b),
+                              (self.mss_k, self.mss_b))},
+                threshold=self.threshold, correlate=correlate_surfaces,
+                fit=fit_tiles_host)
+            raw_dx, raw_dy, _resp, n_stt = stt_rows(
+                StripRows(pan1), StripRows(pan2), [dev], self.stt_sections,
+                self.stt_lines, self.overlap_cols, self.edge_cols,
+                self.stt_threshold, self.stt_max_delta_y,
+                geometry=parity_stt_windows, peaks=stt_surface_peaks,
+                average=stt_average_host)
+        return cx, cy, n_valid, raw_dx, raw_dy, n_stt
+
+    def _remap(self, src, plan, cut, out=None):
+        """One section's ``cv::remap`` (kernel (f)): output rows ``[cut.
+        first, cut.first + cut.count)`` of the section ``src``."""
+        with span("oip.remap.sections", src.device):
+            out = remap_section_u16(src, plan, cut.first, cut.count, out=out)
+        count("remap_sections")
+        return out
+
+    def align(self, mss_c, cx, cy):
+        """The alignment of RRC'd (4, rows, W/4) bands in the reference's
+        overlapping sections (:func:`~..ops.resample.ibpa_plan`, the first
+        ``section_overlap`` rows trimmed) -> (rows - section_overlap, W/4,
+        4) uint16, rows past the last section 0.  Every call's plan is
+        uploaded before the first launch (here and in :meth:`prestitch`),
+        so the card does not wait on the host between sections."""
+        bands, lines, bw = mss_c.shape
+        plans = [plan_for_band_alignment(cx[b], cy[b], bw,
+                                         self.quantized_coords)
+                 for b in range(bands)]
+        # zeros through int16: torch has few uint16 kernels on CUDA
+        aligned = torch.zeros((max(0, lines - self.section_overlap), bw,
+                               bands), dtype=torch.int16,
+                              device=mss_c.device).view(torch.uint16)
+        calls = [(mss_c[b, c.offset:c.offset + c.rows], plans[b], c, b)
+                 for c in ibpa_plan(lines, self.line_per_section, 0,
+                                    self.section_overlap)
+                 for b in range(bands)]
+        for src, plan, c, _b in calls:
+            prepare_remap_section(src, plan, c.first, c.count)
+        for src, plan, c, b in calls:
+            aligned[c.dst:c.dst + c.count, :, b] = self._remap(src, plan, c)
+        return aligned
+
+    def prestitch(self, pan2_c, dx: float, dy: float):
+        """PreStitch's SectionaryRemap of the RRC'd (rows, W) PAN2 by the
+        stt deltas (:func:`~..ops.resample.sectionary_plan`), each
+        section's kept rows written in place -> (rows, W) uint16."""
+        lines, width = pan2_c.shape
+        plan = plan_for_constant_shift(dx, dy, width, self.quantized_coords)
+        sp = sectionary_plan(lines, self.remap_section_rows, dy)
+        calls = [(pan2_c[c.offset:c.offset + c.rows], c) for c in sp.cuts]
+        if sp.window:
+            window = torch.cat([pan2_c[a:a + n] for a, n in sp.window])
+            calls.append((window, SectionCut(0, window.shape[0],
+                                             sp.window_first, sp.bcut,
+                                             sp.window_dst)))
+        for src, c in calls:
+            prepare_remap_section(src, plan, c.first, c.count)
+        out = torch.empty((sp.rows, width), dtype=torch.uint16,
+                          device=pan2_c.device)
+        for src, c in calls:
+            self._remap(src, plan, c, out[c.dst:c.dst + c.count])
+        return out
+
+    def transform(self, pan1, pan2, mss, cx, cy, raw_dx, raw_dy):
+        """-> (aligned (L/4 - section_overlap, W/4, 4), prestt (L, W),
+        stitched (L, 2 * (W - fold))) uint16."""
+        with span("oip.transform", pan1.device):
+            # both corrections queued first: the card runs them while the
+            # host makes the remap plans
+            mss_c = rrc_apply(mss, self.mss_k, self.mss_b)
+            pan2_c = rrc_apply(pan2, self.pan2_k, self.pan2_b)
+            aligned = self.align(mss_c, cx, cy)
+            del mss_c
+            prestt = self.prestitch(pan2_c, raw_dx, raw_dy)
+            del pan2_c
+            stitched = self.stitch(pan1, prestt)
+        return aligned, prestt, stitched
+
+    def stitch(self, pan1, prestt):
+        """StitchBigRaw's seam concat: RRC(PAN1)'s left ``W - fold``
+        columns beside the prestitched PAN2's from ``fold`` on, PAN1 RRC'd
+        (kernel (a)) :data:`STITCH_ROWS` rows at a time, so no corrected
+        copy of the whole strip is made beside the stitched one."""
+        lines, width = pan1.shape
+        keep = width - self.fold
+        out = torch.empty((lines, 2 * keep), dtype=torch.uint16,
+                          device=pan1.device)
+        out[:, keep:] = prestt[:, self.fold:]
+        for r0 in range(0, lines, STITCH_ROWS):
+            out[r0:r0 + STITCH_ROWS, :keep] = rrc_apply(
+                pan1[r0:r0 + STITCH_ROWS], self.pan1_k, self.pan1_b)[:, :keep]
+        return out
+
+    def forward(self, pan1, pan2, mss):
+        """Estimate then transform: -> (aligned, prestt, stitched, n_valid,
+        n_stt, (cx, cy, raw_dx, raw_dy))."""
+        with span(SCENE_SPAN, pan1.device):
+            cx, cy, n_valid, raw_dx, raw_dy, n_stt = self.estimate(
+                pan1, pan2, mss)
+            outs = self.transform(pan1, pan2, mss, cx, cy, raw_dx, raw_dy)
+        return (*outs, n_valid, n_stt, (cx, cy, raw_dx, raw_dy))
 
 
 def make_device_pipeline(pan1_params, pan2_params, mss_params, **cfg):

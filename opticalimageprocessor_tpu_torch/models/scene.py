@@ -11,7 +11,10 @@ PAN (RAW or TIFF).  With ``mss2_file`` it runs the reference's whole
 prestitched PAN2 while that is still on the devices
 (:class:`~.device_pipeline.MssAlign`), and the two aligned rasters stitch
 into one MSS TIFF.  ``models/scene_stream`` runs the same scene in
-bounded-memory sections.
+bounded-memory sections.  :func:`run_parity_scene` (``scene --parity``)
+runs the scene in the reference binary's own semantics instead, those of
+the file commands' parity route, on one device
+(:class:`~.device_pipeline.ParityScenePipeline`).
 
 RAW/TIFF/CSV host IO and logging come from the port's own host modules
 (``constants``, ``formats``, ``io``, ``utils.logging``).
@@ -40,6 +43,7 @@ from ..utils.logging import device_profile, logw, olog, stage, to_host
 
 from .device_pipeline import (
     MssAlign,
+    ParityScenePipeline,
     ScenePipeline,
     check_registration_valid,
     check_stt_valid,
@@ -344,6 +348,100 @@ def _run_scene(
     olog("Stitched MSS written to %s", out_stitched_mss)
     outs.update({"aligned2": aligned2_path, "stitched_mss": out_stitched_mss})
     return outs
+
+
+def run_parity_scene(*args, profile_dir: str = "", **kw):
+    """Run the parity scene (see :func:`_run_parity_scene`); with
+    ``profile_dir`` the run is wrapped in a torch.profiler trace."""
+    with device_profile(profile_dir, kw.get("device", "cuda")):
+        return _run_parity_scene(*args, **kw)
+
+
+def _run_parity_scene(
+    pan1_file: str,
+    pan2_file: str,
+    mss_file: str,
+    rrc_pan1: str = "",
+    rrc_pan2: str = "",
+    rrc_mss_files: tuple[str, str, str, str] | None = None,
+    slices: int = 10,
+    sections: int | None = None,
+    fold_cols: int = 200,
+    stt_sections: int = 10,
+    threshold: float = IBCV_DEF_THRESHOLD,
+    stt_threshold: float = IBCV_DEF_THRESHOLD,
+    stt_max_delta_y: float = 0.0,
+    out_stitched: str = "",
+    out_dir: str | None = None,
+    pixels_per_line: int = PIXELS_PER_LINE,
+    bgr_tiff_order: bool = True,
+    device: str | torch.device = "cuda",
+    quantized_coords: bool = False,
+):
+    """The scene in the reference binary's own semantics on one device:
+    the strips uploaded whole, :class:`~.device_pipeline.
+    ParityScenePipeline` (``prestitch``, the default action with
+    ``--do-rrc4pan`` and ``stitch -c fold_cols`` of the file commands'
+    parity route, without their files between the steps), then the CMOS1
+    ALIGNED.TIFF and the stitched PAN written as :func:`run_scene` writes
+    them.  The reference's argument errors come before any device work,
+    its validity errors from the estimate.  Returns a dict of output
+    paths (``aligned``, ``stitched``)."""
+    from ..parallel.distributed import (
+        drain_line_sharded_to_raw,
+        drain_line_sharded_to_tiff,
+    )
+
+    dev = resolve_device(device)
+    band_px = pixels_per_line // MSS_BANDS
+    p1 = raw_io.RawStrip(pan1_file, pixels_per_line)
+    p2 = raw_io.RawStrip(pan2_file, pixels_per_line)
+    ms = raw_io.RawStrip(mss_file, pixels_per_line)
+    if p1.nbytes != p2.nbytes:
+        raise ValueError("PAN1 size doesn't match PAN2 size")
+    raw_io.check_pan_mss_sizes(p1, ms)
+    olog("Scene (parity): PAN %d lines, MSS %d lines.", p1.lines, ms.lines)
+    pipe = ParityScenePipeline(
+        load_rrc(rrc_pan1, pixels_per_line),
+        load_rrc(rrc_pan2, pixels_per_line),
+        load_band_rrc(rrc_mss_files, band_px),
+        slices=slices, n_sections=sections, threshold=threshold,
+        stt_sections=stt_sections, overlap_cols=fold_cols,
+        stt_threshold=stt_threshold, stt_max_delta_y=stt_max_delta_y,
+        fold=fold_cols // 2, quantized_coords=quantized_coords,
+    )
+    pipe.check(p1.lines, pixels_per_line, ms.lines)
+    pipe = pipe.to(dev)
+    with stage("scene_load", p1.nbytes * 2 + ms.nbytes):
+        pan1, pan2 = (torch.from_numpy(np.array(p._mm)).to(dev)
+                      for p in (p1, p2))
+        mss = load_bands(ms, dev)
+    with stage("scene_parity", p1.nbytes * 2 + ms.nbytes):
+        aligned, _prestt, stitched, n_valid, n_stt, (cx, cy, dx, dy) = pipe(
+            pan1, pan2, mss)
+        del _prestt, pan1, pan2, mss
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    log_band_coeffs(cx, cy, n_valid)
+    olog("Total %d valid delta value pairs found, everage value: "
+         "dx: %.5f, dy: %.5f", n_stt, dx, dy)
+
+    order = [2, 1, 0, 3] if bgr_tiff_order else [0, 1, 2, 3]
+    aligned_path = build_output_file_path(
+        mss_file, IBPA_STEM_EXT, TIFF_FILE_EXT, out_dir=out_dir
+    )
+    with stage("scene_write_aligned", aligned.numel() * 2):
+        drain_line_sharded_to_tiff(aligned, aligned_path, order=order)
+    olog("Aligned MSS written to %s", aligned_path)
+    st_w = stitched.shape[1]
+    out_stitched = out_stitched or default_stitched_path(out_dir, st_w)
+    with stage("scene_write_stitched", stitched.numel() * 2):
+        if is_tiff(out_stitched):
+            drain_line_sharded_to_tiff(stitched, out_stitched)
+        else:
+            drain_line_sharded_to_raw(stitched, out_stitched, st_w)
+    olog("Stitched PAN written to %s", out_stitched)
+    return {"aligned": aligned_path, "stitched": out_stitched}
 
 
 def load_bands(strip: raw_io.RawStrip, dev) -> torch.Tensor:

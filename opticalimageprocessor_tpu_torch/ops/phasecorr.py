@@ -5,9 +5,11 @@ through ``torch.fft`` (cuFFT on the card) instead of the TPU's
 DFT-as-matmul (``ops/fft_mxu``); the fast registration's pieces (the
 spectral x4 band upsample, the windowed correlation peak with its 5x5
 centroid) and the full-surface ``cv::phaseCorrelate``
-(:func:`phase_correlate`, :func:`phase_correlate_batch`) of the file
-commands.  Spectra are complex tensors; the JAX functions' (re, im) pairs
-map to ``.real``/``.imag``.
+(:func:`phase_correlate`, :func:`phase_correlate_batch`,
+:func:`phase_correlate_tiles`) of the parity routes, each group of pairs
+an ``oip.register.surface`` span and counted as ``surface_pairs``.
+Spectra are complex tensors; the JAX functions' (re, im) pairs map to
+``.real``/``.imag``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import count, span
 from .resample import _X4_BASE, _X4_W
 
 _EPS64_F32 = float(np.float32(np.finfo(np.float64).eps))
@@ -269,8 +272,26 @@ def phase_correlate_batch(a: torch.Tensor, b: torch.Tensor):
     group = max(1, _BATCH_BYTES // (4 * M * N))
     outs = []
     for i in range(0, T, group):
-        fa = rfft2_padded(a[i:i + group], (M, N))
-        fb = rfft2_padded(b[i:i + group], (M, N))
-        outs.append(peak_from_spectra(fa, fb, (M, N)))
-        del fa, fb
+        with span("oip.register.surface", a.device):
+            fa = rfft2_padded(a[i:i + group], (M, N))
+            fb = rfft2_padded(b[i:i + group], (M, N))
+            outs.append(peak_from_spectra(fa, fb, (M, N)))
+            del fa, fb
+        count("surface_pairs", min(group, T - i))
     return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+
+def phase_correlate_tiles(a: torch.Tensor, b: torch.Tensor):
+    """``cv::phaseCorrelate(a[t], b[t, j])`` of every (tile, band) pair:
+    ``a`` (T, H, W) against ``b`` (T, B, H, W) -> (dx, dy, response), each
+    (T, B) float32.  The values of :func:`phase_correlate_batch` on ``a``
+    repeated B times a tile, with each tile's spectrum taken once; all T
+    tiles in one group (the caller bounds T)."""
+    T, B, h, w = b.shape
+    M, N = get_optimal_dft_size(h), get_optimal_dft_size(w)
+    with span("oip.register.surface", a.device):
+        fa = rfft2_padded(a, (M, N))[:, None]
+        fb = rfft2_padded(b, (M, N))
+        out = peak_from_spectra(fa, fb, (M, N))
+    count("surface_pairs", T * B)
+    return out

@@ -20,7 +20,10 @@ Counterpart of ``opticalimageprocessor_tpu/ops/resample.py``:
   either coordinate convention, bit for bit the numpy oracle
   ``cv_exact.remap_cubic_u16_exact`` of the JAX package (apart from its
   rows past int16's saturation, which give 0 as in the JAX package):
-  kernel (f) on CUDA, where the JAX package runs XLA, not a TPU kernel.
+  kernel (f) on CUDA, where the JAX package runs XLA, not a TPU kernel;
+  :func:`sectionary_plan` and :func:`ibpa_plan` are the reference's two
+  section loops (the prestitch's SectionaryRemap with its rolling-buffer
+  bottom cut, the alignment's overlapping sections) as lists of calls.
 
 The fast path's column cubic keeps the semantics of the JAX package's
 banded column matrix (``_col_interp_matrix``): taps outside the image, or
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..constants import IBPA_MIN_PROCESSLINES
 from .rrc import _rrc_plain
 
 ROW_OFF_BOUND_FAST = 6
@@ -77,21 +81,24 @@ _X4_BASE = (-2, -2, -1, -1)  # first-tap offset per phase
 
 
 def _upsample4_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """x4 along ``axis`` with replicate-clamped taps, grouped order."""
-    n = x.shape[axis]
-    idx = torch.arange(n, device=x.device)
-    phases = []
-    for r in range(4):
-        g = [
-            x.index_select(axis, torch.clamp(idx + _X4_BASE[r] + c, 0, n - 1))
-            for c in range(4)
-        ]
-        w = [float(v) for v in _X4_W[r]]
-        phases.append(((g[0] * w[0] + g[1] * w[1]) + g[2] * w[2]) + g[3] * w[3])
+    """x4 along ``axis`` with replicate-clamped taps, grouped order: every
+    tap is a view of one copy of ``x`` with its edges repeated twice, and
+    each phase's sum is written into its stride of the output."""
     ax = axis % x.dim()
+    n = x.shape[ax]
+    edged = x.index_select(ax, torch.clamp(
+        torch.arange(-2, n + 2, device=x.device), 0, n - 1))
+    phased = list(x.shape)
+    phased.insert(ax + 1, 4)                 # output 4k + r at [k, r]
+    out = torch.empty(phased, dtype=x.dtype, device=x.device)
+    for r in range(4):
+        g = [edged.narrow(ax, _X4_BASE[r] + c + 2, n) for c in range(4)]
+        w = [float(v) for v in _X4_W[r]]
+        torch.add((g[0] * w[0] + g[1] * w[1]) + g[2] * w[2], g[3] * w[3],
+                  out=out.select(ax + 1, r))
     shape = list(x.shape)
     shape[ax] = 4 * n
-    return torch.stack(phases, dim=ax + 1).reshape(shape)
+    return out.reshape(shape)
 
 
 def upsample4_f32(x: torch.Tensor) -> torch.Tensor:
@@ -773,7 +780,8 @@ def _remap_rows(src: torch.Tensor, plan: RemapPlan, wx: torch.Tensor,
 
 
 def _remap_section_plain(src: torch.Tensor, plan: RemapPlan, first: int,
-                         count: int, origin: int) -> torch.Tensor:
+                         count: int, origin: int,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of kernel (f): :data:`PARITY_CHUNK_ROWS` output
     rows at a time (read at call time), each chunk with its halo rows."""
     width = src.shape[1]
@@ -785,7 +793,8 @@ def _remap_section_plain(src: torch.Tensor, plan: RemapPlan, first: int,
     col_idx = torch.clamp(cols, 0, width - 1).view(-1).to(dev)
     g = torch.from_numpy(plan.g).to(dev)
     chunk = PARITY_CHUNK_ROWS
-    out = torch.empty((count, width), dtype=torch.uint16, device=dev)
+    if out is None:
+        out = torch.empty((count, width), dtype=torch.uint16, device=dev)
     for y0 in range(first, first + count, chunk):
         y1 = min(y0 + chunk, first + count)
         out[y0 - first:y1 - first] = _round_u16(
@@ -794,7 +803,9 @@ def _remap_section_plain(src: torch.Tensor, plan: RemapPlan, first: int,
 
 
 def _check_section_args(src: torch.Tensor, plan: RemapPlan, first: int,
-                        count: int) -> None:
+                        count: int, out=None) -> torch.Tensor:
+    """The checked arguments' output: ``out``, or a new (count, W) uint16
+    raster on ``src``'s device."""
     if src.dim() != 2 or src.dtype != torch.uint16:
         raise ValueError(
             "remap_section_u16: the section must be (rows, W) uint16; got "
@@ -809,6 +820,16 @@ def _check_section_args(src: torch.Tensor, plan: RemapPlan, first: int,
         raise ValueError(
             f"remap_section_u16: output rows [{first}, {first + count}) "
             f"outside the section's {rows}")
+    if out is None:
+        return torch.empty((count, width), dtype=torch.uint16,
+                           device=src.device)
+    if (tuple(out.shape) != (count, width) or out.dtype != torch.uint16
+            or out.device != src.device or not out.is_contiguous()):
+        raise ValueError(
+            f"remap_section_u16: out must be a contiguous ({count}, "
+            f"{width}) uint16 raster on {src.device}; got "
+            f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    return out
 
 
 # kernel (f)'s block (csrc/remap_section.cu): threads, each owning 2
@@ -913,17 +934,12 @@ def quantized_row_weights() -> np.ndarray:
     return torch.stack(_cubic_weights_f32(fy), dim=1).numpy()
 
 
-def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
-                        count: int, origin: int) -> torch.Tensor:
-    """Kernel (f), ``csrc/remap_section.cu``: one launch a call."""
-    _check_section_args(src, plan, first, count)
-    _build.require_cuda("remap_section_u16", src)
-    src = src.contiguous()
-    rows, width = src.shape
+def _section_device_args(src: torch.Tensor, plan: RemapPlan, first: int,
+                         count: int, origin: int):
+    """Kernel (f)'s device copies of ``plan`` and its launch geometry for
+    one call on the CUDA section ``src``, made at first use and kept in
+    ``plan.cuda_cache``: -> (tap0, wx, g, wy, geometry, table)."""
     dev = src.device
-    out = torch.empty((count, width), dtype=torch.uint16, device=dev)
-    if not out.numel():
-        return out
     cache = plan.cuda_cache
 
     def up(a):
@@ -934,13 +950,41 @@ def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
                       up(plan.wx.astype(np.float32)),
                       up(plan.g.astype(np.float64)),
                       up(quantized_row_weights()))
-    tap0, wx, g, wy = cache[dev]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    key = (dev, rows, first, count, origin, n_sm, src.data_ptr() % 16 == 0)
+    key = (dev, src.shape[0], first, count, origin, n_sm,
+           src.data_ptr() % 16 == 0)
     if key not in cache:
         geo = remap_section_geometry(plan, *key[1:])
         cache[key] = (geo, up(geo.table))
-    geo, table = cache[key]
+    return (*cache[dev], *cache[key])
+
+
+def prepare_remap_section(src: torch.Tensor, plan: RemapPlan, first: int = 0,
+                          count: int | None = None, origin: int = 0) -> None:
+    """Make the device copies and the launch geometry of a coming
+    :func:`remap_section_u16` call on the CUDA section ``src`` now (nothing
+    on the CPU).  Each is an upload from pageable memory, which waits for
+    the stream to drain: a loop of calls prepared first launches them back
+    to back."""
+    if src.device.type == "cpu":
+        return
+    count = src.shape[0] - first if count is None else count
+    _section_device_args(src.contiguous(), plan, first, count, origin)
+
+
+def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
+                        count: int, origin: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel (f), ``csrc/remap_section.cu``: one launch a call."""
+    out = _check_section_args(src, plan, first, count, out)
+    _build.require_cuda("remap_section_u16", src)
+    src = src.contiguous()
+    rows, width = src.shape
+    dev = src.device
+    if not out.numel():
+        return out
+    tap0, wx, g, wy, geo, table = _section_device_args(src, plan, first,
+                                                       count, origin)
     _build.launch(
         "remap_section", "oip_remap_section", src.data_ptr(),
         tap0.data_ptr(), wx.data_ptr(), g.data_ptr(), wy.data_ptr(),
@@ -954,8 +998,8 @@ def _remap_section_cuda(src: torch.Tensor, plan: RemapPlan, first: int,
 
 
 def remap_section_u16(src: torch.Tensor, plan: RemapPlan, first: int = 0,
-                      count: int | None = None,
-                      origin: int = 0) -> torch.Tensor:
+                      count: int | None = None, origin: int = 0,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """``cv::remap(section, mapx, mapy, INTER_CUBIC, BORDER_CONSTANT, 0)``
     of a (rows, W) uint16 section with the section-local maps of ``plan``:
     rows and columns outside the section read 0, a pixel whose whole 4x4
@@ -974,12 +1018,14 @@ def remap_section_u16(src: torch.Tensor, plan: RemapPlan, first: int = 0,
     ``_remap_section_math``: that happens only where quantized coordinates
     saturate at int16 (map rows past 32767), where ``cv::remap`` would
     repeat the saturated row.  The result does not depend on the plain
-    version's chunking."""
+    version's chunking.  ``out``, a contiguous (count, W) uint16 raster
+    on ``src``'s device (a row range of a larger one), takes the rows in
+    place of a new raster."""
     count = src.shape[0] - first if count is None else count
     if src.device.type != "cpu":
-        return _remap_section_cuda(src, plan, first, count, origin)
-    _check_section_args(src, plan, first, count)
-    return _remap_section_plain(src, plan, first, count, origin)
+        return _remap_section_cuda(src, plan, first, count, origin, out)
+    out = _check_section_args(src, plan, first, count, out)
+    return _remap_section_plain(src, plan, first, count, origin, out)
 
 
 def remap_polynomial_u16(src: torch.Tensor, coeff_x, coeff_y,
@@ -994,3 +1040,131 @@ def remap_constant_shift_u16(src: torch.Tensor, dx: float, dy: float,
     """Prestitch constant-translation remap of one section."""
     return remap_section_u16(src, plan_for_constant_shift(
         dx, dy, src.shape[1], quantized_coords))
+
+
+# ---------------------------------------------------------------------------
+# The reference's section loops, as plans of remap calls
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SectionCut:
+    """One remap call of a section loop: strip rows ``[offset, offset +
+    rows)`` remapped as one section (its map rows from 0), of whose output
+    rows ``[first, first + count)`` go to rows ``[dst, dst + count)`` of
+    the product."""
+
+    offset: int
+    rows: int
+    first: int
+    count: int
+    dst: int
+
+
+def sectionary_cuts(dy: float) -> tuple[int, int]:
+    """SectionaryRemap's upper and bottom cuts ``(ucut, bcut)`` for the
+    vertical shift ``dy`` (stitcher.h:83-139): the rows a section's shifted
+    support leaves it by, at its top for dy < 0, at its bottom for
+    dy >= 0."""
+    ucut = 0 if dy >= 0.0 else int(-dy) + 1
+    bcut = int(dy) + 1 if dy >= 0.0 else 0
+    return ucut, bcut
+
+
+@dataclass(frozen=True)
+class SectionaryPlan:
+    """The prestitch's section loop (:func:`sectionary_plan`): ``cuts`` in
+    write order, then, where the bottom cut comes from the reference's
+    rolling buffer, ``window``: the (strip row, rows) pieces of the
+    rebuilt buffer rows, top to bottom, remapped as one section of their
+    own, whose output rows ``[window_first, window_first + bcut)`` follow
+    the cuts' rows.  ``end`` is SectionaryRemap's return, the final row
+    offset."""
+
+    cuts: tuple[SectionCut, ...]
+    window: tuple[tuple[int, int], ...]
+    window_first: int
+    bcut: int
+    end: int
+
+    @property
+    def window_dst(self) -> int:
+        """The first product row of the window's rows: the cuts' rows."""
+        return sum(c.count for c in self.cuts)
+
+    @property
+    def rows(self) -> int:
+        """The product's rows."""
+        return self.window_dst + (self.bcut if self.window else 0)
+
+
+def sectionary_plan(lines: int, section_rows: int,
+                    dy: float) -> SectionaryPlan:
+    """PreStitch's SectionaryRemap of a ``lines``-row strip (the JAX
+    package's ``pre_stitch``): sections of ``section_rows`` rows advancing
+    by the rows they keep, each keeping its rows between the upper and
+    bottom cuts (:func:`sectionary_cuts`), the first section also its
+    leading ``ucut`` rows.  The bottom cut of a strip of 2 or more
+    sections is the reference's rolling ``section_rows``-row buffer's last
+    ``bcut`` rows, whose rows beyond the final section's fresh read still
+    hold the previous section's (PreStitch reuses the buffer without
+    clearing it): the plan rebuilds the buffer's last ``2 * bcut + 8``
+    rows and remaps them as a section of their own, rows past it reading
+    0 like the Mat's edge -- the JAX package's window, whose ``y`` starts
+    at 0 where the reference's runs to ``section_rows - 1`` (float32(y +
+    dy) rounds alike on the quantized 1/32-px grid, and up to 2^-11 px
+    apart in continuous coordinates).  A single-section strip keeps its
+    fresh tail (the reference refuses such strips, REMAP_ROW_GUARD)."""
+    ucut, bcut = sectionary_cuts(dy)
+    total_cut = ucut + bcut
+    cuts = []
+    row_offset = prev_offset = final_offset = dst = 0
+    while True:
+        rows = min(section_rows, lines - row_offset)
+        if rows <= total_cut:
+            break
+        first = ucut if cuts else 0
+        cuts.append(SectionCut(row_offset, rows, first,
+                               rows - bcut - first, dst))
+        dst += rows - bcut - first
+        prev_offset, final_offset = final_offset, row_offset
+        row_offset += rows - total_cut
+    window, window_first = (), 0
+    if bcut > 0 and len(cuts) == 1:
+        c = cuts[0]
+        cuts[0] = SectionCut(c.offset, c.rows, c.first, c.count + bcut, c.dst)
+    elif bcut > 0 and cuts:
+        w0 = max(0, section_rows - 2 * bcut - 8)
+        fresh_hi = min(lines - final_offset, section_rows)
+        pieces = []
+        if fresh_hi > w0:
+            pieces.append((final_offset + w0, fresh_hi - w0))
+        if section_rows > fresh_hi:
+            j0 = max(w0, fresh_hi)
+            pieces.append((prev_offset + j0, section_rows - j0))
+        window, window_first = tuple(pieces), section_rows - bcut - w0
+    return SectionaryPlan(tuple(cuts), window, window_first, bcut,
+                          row_offset)
+
+
+def ibpa_plan(lines: int, line_per_section: int, line_offset: int,
+              section_overlap: int,
+              keep_leading_lines: bool = False) -> tuple[SectionCut, ...]:
+    """DoInterBandAlignment's sections of a ``lines``-line band strip
+    (preproc.h:351-425): ``line_per_section`` lines from ``line_offset``,
+    advancing by ``line_per_section - section_overlap`` while at least
+    IBPA_MIN_PROCESSLINES lines are left, each keeping the rows after its
+    first ``section_overlap`` (the first section all of them with
+    ``keep_leading_lines``), written one after another from row 0; rows
+    of the product past the last section stay 0, as in the reference."""
+    cuts = []
+    offset = line_offset
+    dst = 0
+    while True:
+        rows = min(lines - offset, line_per_section)
+        if lines < offset or rows < IBPA_MIN_PROCESSLINES:
+            break
+        first = 0 if not cuts and keep_leading_lines else section_overlap
+        cuts.append(SectionCut(offset, rows, first, rows - first, dst))
+        dst += rows - first
+        offset += line_per_section - section_overlap
+    return tuple(cuts)

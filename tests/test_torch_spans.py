@@ -402,3 +402,102 @@ def test_dual_outputs_identical_with_tracing_on_and_off(traced_dual):
     dual, args, out, _report, _events = traced_dual
     assert not tlog.tracing()
     _same_dual(out, dual(*args))
+
+
+# ---- the parity scene (ParityScenePipeline, scene --parity)
+
+PARITY_LINES, PARITY_WIDTH = 12288, 640
+PARITY_SPANS = ("oip.register.surface", "oip.upsample", "oip.remap.sections")
+
+
+def _parity_pipeline():
+    """A 12288 x 640 scene of the benchmark's synthesis (PAN2 two rows
+    down, so the stt's dy is about +1.6 and PreStitch takes a 2-row bottom
+    cut) and its parity pipeline: one registration block of 10 tiles, 10
+    stt windows, 3000-row PreStitch sections, 2048-line alignment
+    sections."""
+    from portbench import harness, scenes
+
+    traffic = json.loads(
+        (harness.HERE / "traffic" / "scene_160k.json").read_text())
+    traffic.update(scene_lines=PARITY_LINES, pool=1)
+    tables, (s,) = scenes.make_pool(7, traffic, PARITY_WIDTH, 200, "cpu")
+    pipe = dp.ParityScenePipeline(
+        tables.pan1, tables.pan2, tables.mss, n_sections=1, stt_lines=1024,
+        remap_section_rows=3000, line_per_section=2048,
+        quantized_coords=True)
+    return pipe, [s.pan1, s.pan2, s.mss]
+
+
+@pytest.fixture(scope="module")
+def traced_parity(tmp_path_factory):
+    pipe, args = _parity_pipeline()
+    tlog.reset_span_report()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = [pipe(*args) for _ in range(FORWARDS)]
+    report = tlog.span_report()
+    tlog.reset_span_report()
+    path = tmp_path_factory.mktemp("parity_spans") / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e["name"].startswith("oip.")]
+    return pipe, args, outs, report, events
+
+
+def test_parity_spans_nest_under_the_scene(traced_parity):
+    """Each full-surface group (10 registration tiles and the stt's one
+    group of windows), each tile's x4 resize and each section remap is a
+    span inside one ``oip.scene`` a forward; the estimate's, the stt's
+    and the transform's spans nest as in the fast route."""
+    _pipe, _args, _outs, report, events = traced_parity
+    scenes_ = [e for e in events if e["name"] == "oip.scene"]
+    assert len(scenes_) == FORWARDS
+    calls = {"oip.register.surface": 11, "oip.upsample": 10,
+             "oip.remap.sections": 14}
+    for name in PARITY_SPANS:
+        mine = [e for e in events if e["name"] == name]
+        assert len(mine) == calls[name] * FORWARDS, name
+        assert all(sum(_inside(e, s) for s in scenes_) == 1 for e in mine)
+        assert report[name]["calls"] == calls[name] * FORWARDS
+        assert report[name]["device_ms"] > 0.0
+    assert report["oip.register.surface"]["parent"] == "oip.estimate"
+    assert report["oip.upsample"]["parent"] == "oip.estimate"
+    assert report["oip.remap.sections"]["parent"] == "oip.transform"
+    for name in ("oip.estimate", "oip.transform"):
+        assert report[name]["parent"] == "oip.scene"
+    for name in ("oip.register.tiles", "oip.register.fit", "oip.stt"):
+        assert report[name]["parent"] == "oip.estimate"
+    stt_surfaces = [e for e in events if e["name"] == "oip.register.surface"
+                    and any(_inside(e, s) for s in events
+                            if s["name"] == "oip.stt")]
+    assert len(stt_surfaces) == FORWARDS
+
+
+def test_parity_counters_read_their_pinned_counts(traced_parity):
+    """A forward correlates 10 tiles x 4 bands and 10 stt windows over the
+    whole surface (50), remaps 5 PreStitch sections, the rolling-buffer
+    window and 2 alignment sections of each band (14), writes 10 PAN and
+    10 band-quad tiles (kernel (h)'s counter) and reads back 2 sets of
+    statistics (the fit's and the stt average's)."""
+    _pipe, _args, _outs, report, _events = traced_parity
+    assert report["surface_pairs"]["count"] == 50 * FORWARDS
+    assert report["remap_sections"]["count"] == 14 * FORWARDS
+    assert report["reg_stack_tiles"]["count"] == 20 * FORWARDS
+    assert report["host_syncs"]["count"] == 2 * FORWARDS
+
+
+def test_parity_untraced_records_nothing(traced_parity):
+    """With tracing off the spans and counters keep nothing, and the
+    outputs are the traced forwards' bit for bit."""
+    pipe, args, outs, _report, _events = traced_parity
+    tlog.reset_span_report()
+    out = pipe(*args)
+    assert tlog.span_report() == {}
+    aligned, prestt, stitched, n_valid, n_stt, params = out
+    for got, want in zip((aligned, prestt, stitched, n_valid),
+                         outs[0][:4]):
+        assert torch.equal(got, want)
+    assert n_stt == outs[0][4] and params[2:] == outs[0][5][2:]
+    for got, want in zip(params[:2], outs[0][5][:2]):
+        assert torch.equal(got, want)
