@@ -428,6 +428,8 @@ def phase_kernels(dev, records):
     torch.cuda.empty_cache()
     phase_row_fft(dev, records)
     torch.cuda.empty_cache()
+    phase_surface(dev, records)
+    torch.cuda.empty_cache()
 
     # (b) windowed cross-power: 2 tiles x 4 bands at the registration shapes
     M, N, m, n, win = 16000, 1228, 4000, 307, 64
@@ -903,6 +905,125 @@ def phase_row_fft(dev, records, tiles: int = 50):
     )
     say(f"[i] row_fft: within 2e-6 and twice cuFFT's error of float64; "
         f"{json.dumps(records['row_fft'])}")
+
+
+def phase_surface(dev, records):
+    """Kernels (j) and (k), the full surface's cross-power and peak, at the
+    parity route's shapes: a registration tile (one PAN spectrum broadcast
+    over 4 band spectra, (1, 4, 16000, 626), surfaces of 16000 x 1250) and
+    the stt's 10 windows pair for pair ((10, 16000, 101), surfaces of
+    16000 x 200), spectra of uint16 noise with exact zeros planted so that
+    |C| == 0.  (j) torch.equal to ``whitened_crosspower``; (k) + the gather
+    from the unshifted surfaces (``_peak_and_centroid``) the same bits as
+    ``fftshift`` + ``torch.argmax`` + ``_argmax_centroid``, on the inverse
+    transform's surfaces and on copies with the maximum planted in every
+    quadrant; one launch a call.  Timed beside the plain versions, the
+    chain (k) replaces (``fftshift`` + ``torch.argmax``) and the bounds:
+    each spectrum read once and each cross-power written once, each
+    surface read once."""
+    import torch
+
+    from opticalimageprocessor_tpu_torch import _build
+    from opticalimageprocessor_tpu_torch.ops import phasecorr as pc
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def spectra(shape, pad):
+        x = torch.randint(0, 65536, shape, generator=g, device=dev,
+                          dtype=torch.int32).to(torch.float32)
+        return pc.rfft2_padded(x, pad)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def shifted_argmax(surf):
+        m, n = surf.shape[-2:]
+        return torch.argmax(torch.fft.fftshift(surf, dim=(-2, -1)).reshape(
+            -1, m * n), dim=1)
+
+    def shifted_centroid(surf):
+        m, n = surf.shape[-2:]
+        cxc, cyc, s = pc._argmax_centroid(
+            torch.fft.fftshift(surf, dim=(-2, -1)))
+        return n / 2.0 - cxc, m / 2.0 - cyc, s
+
+    def ties(surf):
+        # the surface's maximum at one sample of each unshifted quadrant
+        m, n = surf.shape[-2:]
+        t = surf.clone()
+        top = t.amax() + 1
+        for y, x in ((1, 2), (m - 2, n - 3), (m // 2 + 1, 0), (0, n // 2)):
+            t[..., y, x] = top
+        return t
+
+    out = {}
+    for name, sa, sb, pad in (
+            ("tile", (1, 16000, 1228), (1, 4, 16000, 1228), (16000, 1250)),
+            ("stt", (10, 16000, 200), (10, 16000, 200), (16000, 200))):
+        fa, fb = spectra(sa, pad), spectra(sb, pad)
+        if name == "tile":
+            fa = fa[:, None]
+        fb.view(-1)[::97] = 0
+        fa.view(-1)[5::89] = 0
+        want = pc.whitened_crosspower(fa, fb)
+        check(bool((want == 0).any()), f"(j) {name}: no |C| == 0 planted")
+        _build.reset_launch_counts()
+        got = pc.surface_crosspower(fa, fb)
+        check(_build.LAUNCHES["surface_crosspower"] == 1,
+              f"surface_crosspower launches a {name} group")
+        check(bool(torch.equal(bits(torch.view_as_real(got)),
+                               bits(torch.view_as_real(want)))),
+              f"(j) {name} vs whitened_crosspower")
+        surf = torch.fft.irfft2(got, s=pad)
+        del got, want
+        for kind, s in (("surface", surf), ("ties", ties(surf))):
+            _build.reset_launch_counts()
+            peak = pc.surface_peak(s)
+            check(_build.LAUNCHES["surface_peak"] == 1,
+                  f"surface_peak launches a {name} group")
+            check(bool(torch.equal(peak, shifted_argmax(s))),
+                  f"(k) {name} {kind} vs fftshift + argmax")
+            check(all(bool(torch.equal(bits(a), bits(b))) for a, b in zip(
+                pc._peak_and_centroid(s), shifted_centroid(s))),
+                f"(k) + gather {name} {kind} vs fftshift + the centroid")
+        torch.cuda.empty_cache()
+        out[name] = dict(
+            crosspower_ms=time_ms(lambda: pc.surface_crosspower(fa, fb), 20),
+            crosspower_plain_ms=time_ms(
+                lambda: pc.whitened_crosspower(fa, fb), 5),
+            crosspower_bound_ms=bound(
+                (fa.numel() + 2 * fb.numel()) * 8)["bound_ms"],
+            peak_ms=time_ms(lambda: pc.surface_peak(surf), 20),
+            peak_plain_ms=time_ms(lambda: pc._surface_peak_plain(surf), 5),
+            peak_library_ms=time_ms(lambda: shifted_argmax(surf), 5),
+            peak_bound_ms=bound(surf.numel() * 4)["bound_ms"],
+        )
+        del fa, fb, surf
+        torch.cuda.empty_cache()
+    tile, stt = out["tile"], out["stt"]
+    records["surface_crosspower"] = dict(
+        max_abs_err=0, ms=tile["crosspower_ms"],
+        plain_ms=tile["crosspower_plain_ms"],
+        bound_ms=tile["crosspower_bound_ms"], bound_by="bytes",
+        library_ms=None, stt_ms=stt["crosspower_ms"],
+        stt_plain_ms=stt["crosspower_plain_ms"],
+        stt_bound_ms=stt["crosspower_bound_ms"],
+        shape="a parity tile: (1, 1, 16000, 626) broadcast against (1, 4, "
+        "16000, 626) complex64; stt_*: (10, 16000, 101) pair for pair")
+    records["surface_peak"] = dict(
+        max_abs_err=0, ms=tile["peak_ms"], plain_ms=tile["peak_plain_ms"],
+        bound_ms=tile["peak_bound_ms"], bound_by="bytes",
+        library_ms=tile["peak_library_ms"], stt_ms=stt["peak_ms"],
+        stt_plain_ms=stt["peak_plain_ms"],
+        stt_bound_ms=stt["peak_bound_ms"],
+        stt_library_ms=stt["peak_library_ms"],
+        library="torch.fft.fftshift + torch.argmax, the chain it replaces",
+        shape="a parity tile's 4 surfaces of 16000 x 1250 float32; stt_*: "
+        "10 of 16000 x 200")
+    say(f"[j] surface_crosspower: torch.equal to whitened_crosspower; "
+        f"{json.dumps(records['surface_crosspower'])}")
+    say(f"[k] surface_peak: + the gather the same bits as fftshift + argmax "
+        f"+ the centroid; {json.dumps(records['surface_peak'])}")
 
 
 def f32(dev, *rows):
@@ -2304,7 +2425,9 @@ def phase_parity(dev, power, tmp: Path, records, lines: int = 40960):
         fast = "--fast" in argv
         check(n["rrc"] > 0 and n["crosspower"] == 0 and n["stitch_tail"] == 0
               and n["row_pass"] == 0 and (n["remap_band"] > 0) == fast
-              and (n["remap_section"] > 0) != fast,
+              and (n["remap_section"] > 0) != fast
+              and (fast or n["surface_crosspower"] > 0)
+              and n["surface_peak"] == n["surface_crosspower"],
               f"{tag}: launches {n}")
         check(bool(plans) != fast, f"{tag}: {len(plans)} parity plans")
         check("cuda" not in plain_devices,
@@ -3955,6 +4078,14 @@ def main() -> int:
         "remap_section": (
             "opticalimageprocessor_tpu_torch/csrc/remap_section.cu",
             "opticalimageprocessor_tpu/ops/resample.py:415"),
+        # not TPU kernels: the JAX package's full surface is jnp.fft,
+        # jnp.fft.fftshift and jnp.argmax
+        "surface_crosspower": (
+            "opticalimageprocessor_tpu_torch/csrc/surface_crosspower.cu",
+            "opticalimageprocessor_tpu/ops/phasecorr.py:59"),
+        "surface_peak": (
+            "opticalimageprocessor_tpu_torch/csrc/surface_peak.cu",
+            "opticalimageprocessor_tpu/ops/phasecorr.py:59"),
     }
     kernels = []
     for name, (source, repl) in replaces.items():
@@ -3976,7 +4107,9 @@ def main() -> int:
                                  "raw_ms", "raw_library_ms", "raw_plain_ms",
                                  "cufft_rel_rms", "plain_rel_rms", "band_ms",
                                  "band_library_ms", "band_plain_ms",
-                                 "band_bound_ms", "band_max_rel_rms")
+                                 "band_bound_ms", "band_max_rel_rms",
+                                 "stt_ms", "stt_plain_ms", "stt_bound_ms",
+                                 "stt_library_ms")
                if k in r},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -47,6 +47,8 @@ LAUNCHES: dict[str, int] = {
     "ky_gemm": 0,
     "tile_stack": 0,
     "row_fft": 0,
+    "surface_crosspower": 0,
+    "surface_peak": 0,
 }
 
 _P = ctypes.c_void_p
@@ -69,6 +71,8 @@ _SIGNATURES = {
     "oip_ky_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "oip_tile_stack": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
     "oip_row_fft": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "oip_surface_crosspower": [_P, _P, _P, _I, _I, _L, _P],
+    "oip_surface_peak": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "oip_remap_section": [
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,

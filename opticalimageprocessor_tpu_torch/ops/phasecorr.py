@@ -10,6 +10,16 @@ centroid) and the full-surface ``cv::phaseCorrelate``
 an ``oip.register.surface`` span and counted as ``surface_pairs``.
 Spectra are complex tensors; the JAX functions' (re, im) pairs map to
 ``.real``/``.imag``.
+
+A full surface goes from the half spectra to its peak with no plain-torch
+pass over a full-size array on the card: kernel (j)
+(``csrc/surface_crosspower.cu``, :func:`surface_crosspower`) whitens the
+cross-power in one pass, cuFFT's ``irfft2`` inverts it, and kernel (k)
+(``csrc/surface_peak.cu``, :func:`surface_peak`) finds the arg-max of the
+fftshifted surface on the unshifted one, whose 5x5 centroid window is
+then gathered at the rolled positions: no shifted copy is made.  CPU
+tensors take the plain versions, :func:`whitened_crosspower` and
+:func:`_surface_peak_plain`; the bits are the same either way.
 """
 
 from __future__ import annotations
@@ -20,12 +30,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..utils.logging import count, span
 from .resample import _X4_BASE, _X4_W
 
 _EPS64_F32 = float(np.float32(np.finfo(np.float64).eps))
 # float32 bytes of padded tiles per phase_correlate_batch group
 _BATCH_BYTES = 1 << 30
+# kernel (k)'s first stage: about this many blocks over all the surfaces
+# of a call (~8 of 256 threads an SM of the H100's 132, one wave)
+_PEAK_BLOCKS = 1024
 
 
 def get_optimal_dft_size(n: int) -> int:
@@ -163,6 +177,49 @@ def whitened_crosspower(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     return torch.complex(pr / den, pi / den)
 
 
+def _surface_crosspower_cuda(fa: torch.Tensor,
+                             fb: torch.Tensor) -> torch.Tensor:
+    if fa.dtype != torch.complex64 or fb.dtype != torch.complex64:
+        raise ValueError(f"surface_crosspower: complex64 spectra only, got "
+                         f"{fa.dtype} and {fb.dtype}")
+    if not fa.is_contiguous() or not fb.is_contiguous():
+        raise ValueError("surface_crosspower: the spectra must be "
+                         "contiguous")
+    if fb.dim() < 2 or fa.dim() != fb.dim() or fa.shape[-2:] != fb.shape[-2:]:
+        raise ValueError(f"surface_crosspower: spectra {tuple(fa.shape)} "
+                         f"and {tuple(fb.shape)} do not pair")
+    plane = fb.shape[-2] * fb.shape[-1]
+    if fa.shape == fb.shape:
+        outer, bands = fb.numel() // max(plane, 1), 1
+    elif fb.dim() >= 3 and fa.shape[-3] == 1 \
+            and fa.shape[:-3] == fb.shape[:-3]:
+        bands = fb.shape[-3]
+        outer = fa.numel() // max(plane, 1)
+    else:
+        raise ValueError(
+            f"surface_crosspower: fa {tuple(fa.shape)} must have fb's shape "
+            f"{tuple(fb.shape)}, or fb's with one band in dim -3")
+    _build.require_cuda("surface_crosspower", fa, fb)
+    out = torch.empty(fb.shape, dtype=torch.complex64, device=fb.device)
+    if out.numel():
+        _build.launch(
+            "surface_crosspower", "oip_surface_crosspower", fa.data_ptr(),
+            fb.data_ptr(), out.data_ptr(), outer, bands, plane,
+            _build.stream_of(fb), device=fb.device)
+    return out
+
+
+def surface_crosspower(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """:func:`whitened_crosspower` of the full surfaces' half spectra, in
+    ``fb``'s shape, contiguous: ``fa`` has ``fb``'s shape, or one band
+    (dim -3 of 1) broadcast over ``fb``'s.  Kernel (j) on CUDA tensors (one
+    launch, ``fa`` read once whatever the band count), the plain version
+    on CPU tensors; the bits are the same."""
+    if fa.device.type == "cpu":
+        return whitened_crosspower(fa, fb)
+    return _surface_crosspower_cuda(fa, fb)
+
+
 def contract_rows(dr, di, M: int, N: int, win_y: int):
     """ky -> window rows: ``Re((dr + i di)(cos + i sin))`` summed over ky
     against the (M, 2*win_y+1) evaluation matrices, / (M*N).  ``dr``/``di``:
@@ -202,36 +259,112 @@ def _centroid_on_window(corr: torch.Tensor, win_y: int, win_x: int):
     return cxc - win_x, cyc - win_y, s
 
 
-def _peak_and_centroid(corr: torch.Tensor):
-    """Arg-max + 5x5 centroid on (..., M, N) fftshifted full surfaces
-    (``cv::phaseCorrelate``); returns (dx, dy, response) shaped like the
-    batch dims."""
-    M, N = corr.shape[-2], corr.shape[-1]
-    cxc, cyc, s = _argmax_centroid(corr)
+def _peak_and_centroid(surf: torch.Tensor):
+    """Arg-max + 5x5 centroid of full surfaces in their fftshifted order
+    (``cv::phaseCorrelate``), read from the unshifted (..., M, N) ``surf``
+    that the inverse transform gives: the peak by :func:`surface_peak`,
+    the window's values gathered where the shift put them.  -> (dx, dy,
+    response) shaped like the batch dims."""
+    M, N = surf.shape[-2], surf.shape[-1]
+    cxc, cyc, s = _centroid_5x5(surf, surface_peak(surf), (M // 2, N // 2))
     return N / 2.0 - cxc, M / 2.0 - cyc, s
+
+
+def _surface_peak_plain(surf: torch.Tensor) -> torch.Tensor:
+    """:func:`surface_peak` in plain torch: each surface's largest value
+    (NaN above all, as ``torch.argmax`` takes it) and, of the samples that
+    hold it, the smallest shifted index (``torch.fft.fftshift`` rolls by
+    (M // 2, N // 2)): the first shifted row that holds one, then the
+    first shifted column of that row.  One boolean plane besides the
+    input, no shifted copy."""
+    M, N = surf.shape[-2], surf.shape[-1]
+    s = surf.reshape(-1, M, N)
+    top = s.amax(dim=(1, 2), keepdim=True)
+    hit = torch.where(top.isnan(), s.isnan(), s == top)
+    rows = (torch.arange(M, device=surf.device) + M // 2) % M
+    cols = (torch.arange(N, device=surf.device) + N // 2) % N
+    row = torch.where(hit.any(dim=2), rows, M).amin(dim=1)
+    line = hit[torch.arange(s.shape[0], device=surf.device),
+               (row - M // 2) % M]
+    return row * N + torch.where(line, cols, N).amin(dim=1)
+
+
+def _peak_slices(surfaces: int, rows: int) -> tuple[int, int]:
+    """Kernel (k)'s first stage: rows a block (a multiple of 4) and blocks
+    a surface, about :data:`_PEAK_BLOCKS` blocks in all."""
+    per = max(1, -(-_PEAK_BLOCKS // max(surfaces, 1)))
+    rows_per_block = -(-rows // per)
+    rows_per_block += -rows_per_block % 4
+    return rows_per_block, -(-rows // rows_per_block)
+
+
+def _surface_peak_cuda(surf: torch.Tensor) -> torch.Tensor:
+    if surf.dtype != torch.float32:
+        raise ValueError(f"surface_peak: float32 surfaces only, got "
+                         f"{surf.dtype}")
+    if surf.dim() < 2 or not surf.is_contiguous():
+        raise ValueError(f"surface_peak: a contiguous (..., M, N) stack, "
+                         f"got {tuple(surf.shape)}")
+    M, N = surf.shape[-2], surf.shape[-1]
+    if M * N > 1 << 30:
+        raise ValueError(f"surface_peak: {M} x {N} surfaces exceed the "
+                         "kernel's 2^30 samples")
+    _build.require_cuda("surface_peak", surf)
+    surfaces = surf.numel() // max(M * N, 1)
+    out = torch.empty(surfaces, dtype=torch.int64, device=surf.device)
+    if surfaces and M * N:
+        rows_per_block, chunks = _peak_slices(surfaces, M)
+        scratch = torch.empty(2 * surfaces * chunks, dtype=torch.int32,
+                              device=surf.device)
+        _build.launch(
+            "surface_peak", "oip_surface_peak", surf.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), surfaces, M, N,
+            rows_per_block, chunks, _build.stream_of(surf),
+            device=surf.device)
+    return out
+
+
+def surface_peak(surf: torch.Tensor) -> torch.Tensor:
+    """The first maximum of each (M, N) surface of ``surf`` (..., M, N) in
+    fftshifted row-major order, as ``torch.argmax`` finds it on the
+    shifted copy, read from the unshifted surfaces: its linear index in
+    the shifted surface, int64 (prod(batch),).  Kernel (k) on CUDA
+    tensors (one launch a call), :func:`_surface_peak_plain` on CPU
+    tensors."""
+    if surf.device.type == "cpu":
+        return _surface_peak_plain(surf)
+    return _surface_peak_cuda(surf)
 
 
 def _argmax_centroid(corr: torch.Tensor):
     """Arg-max (row-major first maximum, like ``cv::minMaxLoc`` and
-    ``jnp.argmax``) + the 5x5 weighted centroid around it, clipped at the
-    surface's edges, of (..., H, W) surfaces; returns the centroid's
-    (column, row) and the window sum, each shaped like the batch dims.
-    The sum gets float64 eps (as float32) before dividing, like OpenCV's
-    weightedCentroid."""
+    ``jnp.argmax``) + the 5x5 weighted centroid around it
+    (:func:`_centroid_5x5`) of (..., H, W) surfaces."""
     wy, wx = corr.shape[-2], corr.shape[-1]
-    batch = corr.shape[:-2]
-    flat = corr.reshape(-1, wy * wx)
-    peak = torch.argmax(flat, dim=1)
+    return _centroid_5x5(corr, torch.argmax(corr.reshape(-1, wy * wx), dim=1))
+
+
+def _centroid_5x5(surf: torch.Tensor, peak: torch.Tensor,
+                  roll: tuple[int, int] = (0, 0)):
+    """The 5x5 weighted centroid around ``peak`` (each surface's linear
+    index, (prod(batch),)), clipped at the surface's edges, of the (...,
+    H, W) surfaces ``surf`` rolled by ``roll``: the value at (r, c) is
+    read from ``surf`` at ((r - roll[0]) mod H, (c - roll[1]) mod W).
+    Returns the centroid's (column, row) and the window sum, each shaped
+    like the batch dims.  The sum gets float64 eps (as float32) before
+    dividing, like OpenCV's weightedCentroid."""
+    wy, wx = surf.shape[-2], surf.shape[-1]
+    batch = surf.shape[:-2]
     py = peak // wx
     px = peak % wx
     start_r = torch.clamp(py - 2, 0, wy - 5)
     start_c = torch.clamp(px - 2, 0, wx - 5)
-    ar = torch.arange(5, device=corr.device)
+    ar = torch.arange(5, device=surf.device)
     rr = start_r[:, None, None] + ar[None, :, None]        # (B, 5, 1)
     cc = start_c[:, None, None] + ar[None, None, :]        # (B, 1, 5)
-    win = flat.reshape(-1, wy, wx)
-    bidx = torch.arange(flat.shape[0], device=corr.device)[:, None, None]
-    vals = win[bidx, rr, cc]                               # (B, 5, 5)
+    win = surf.reshape(-1, wy, wx)
+    bidx = torch.arange(win.shape[0], device=surf.device)[:, None, None]
+    vals = win[bidx, (rr - roll[0]) % wy, (cc - roll[1]) % wx]  # (B, 5, 5)
     valid = (
         (rr >= py[:, None, None] - 2) & (rr <= py[:, None, None] + 2)
         & (cc >= px[:, None, None] - 2) & (cc <= px[:, None, None] + 2)
@@ -247,11 +380,13 @@ def _argmax_centroid(corr: torch.Tensor):
 def peak_from_spectra(fa: torch.Tensor, fb: torch.Tensor,
                       pad_to: tuple[int, int]):
     """Cross-power spectrum -> correlation peak (dx, dy, response), given
-    the (..., M, N//2 + 1) half spectra of the two tiles: whitened
-    cross-power, inverse rfft2, fftshift, arg-max and 5x5 centroid."""
+    the (..., M, N//2 + 1) half spectra of the two tiles (``fa`` may have
+    one band where ``fb`` has several, :func:`surface_crosspower`):
+    whitened cross-power, inverse rfft2, then the arg-max and 5x5 centroid
+    of the fftshifted surface, read from the unshifted one."""
     M, N = pad_to
-    corr = torch.fft.irfft2(whitened_crosspower(fa, fb), s=(M, N))
-    return _peak_and_centroid(torch.fft.fftshift(corr, dim=(-2, -1)))
+    return _peak_and_centroid(
+        torch.fft.irfft2(surface_crosspower(fa, fb), s=(M, N)))
 
 
 def phase_correlate(a, b):

@@ -69,7 +69,8 @@ def test_phase_correlate_batch_groups_agree(rng, monkeypatch):
 def test_peak_centroid_clips_at_the_surface_edge(where):
     """A peak within 2 samples of the surface's edge: the 5x5 centroid
     window is clipped like cv::phaseCorrelate's weightedCentroid, in both
-    packages."""
+    packages (the port's reads the unshifted surface, the inverse
+    transform's output, of which ``corr`` is the fftshifted form)."""
     corr = np.full((16, 20), 0.01, np.float32)
     py, px = {"corner": (0, 19), "edge_row": (15, 7),
               "edge_col": (6, 1)}[where]
@@ -77,8 +78,8 @@ def test_peak_centroid_clips_at_the_surface_edge(where):
     corr[min(py + 1, 15), px] = 0.5
     corr[py, max(px - 1, 0)] = 0.25
     want = [float(v) for v in jpc._peak_and_centroid(corr, 16, 20)]
-    got = [float(v) for v in phasecorr._peak_and_centroid(
-        torch.from_numpy(corr)[None])]
+    unshifted = torch.fft.ifftshift(torch.from_numpy(corr), dim=(-2, -1))
+    got = [float(v) for v in phasecorr._peak_and_centroid(unshifted[None])]
     # float32 sums of 25 terms in another order: a few ulp of 7
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
