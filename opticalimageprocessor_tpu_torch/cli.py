@@ -67,8 +67,9 @@ def _print_stage_report() -> None:
     """Per-stage seconds/MBps summary (the reference's ubiquitous
     stop_watch/comma_sep instrumentation, aggregated), then, after a
     ``--profile`` run, the spans' device ms a call and the counters
-    (``utils.logging.span_report``)."""
-    from .utils.logging import olog, span_report, stage_report
+    (``utils.logging.span_report``), and the host's waits for the card by
+    the span they sit in (``utils.logging.wait_report``)."""
+    from .utils.logging import olog, span_report, stage_report, wait_report
 
     rep = stage_report()
     if rep:
@@ -89,6 +90,12 @@ def _print_stage_report() -> None:
             else:
                 olog("%-24s %10.3f device ms a call  (%d calls)", name,
                      sp["device_ms"] / sp["calls"], sp["calls"])
+    waits = wait_report()
+    if waits:
+        olog("==== waits by site ====")
+        for site, w in waits.items():
+            olog("%-24s %8d waits %10.3f host ms", site or "(no span)",
+                 w["calls"], w["host_ms"])
 
 
 _PROFILE_HELP = ("write a torch.profiler trace of the run (host activity, "

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.logging import host_wait
 from .raw import RawStrip
 
 SLOTS = 2   # pinned staging buffers a direction (double buffering)
@@ -68,7 +69,8 @@ class Drain:
 
     def wait(self) -> list[np.ndarray]:
         if self._event is not None:
-            self._event.synchronize()
+            with host_wait():
+                self._event.synchronize()
         return self._arrays
 
 
@@ -119,7 +121,8 @@ class HostDeviceCopies:
                            for a in arrays])
         slot = self._slot("up")
         if self._done[slot] is not None:
-            self._done[slot].synchronize()   # the slot's last copy has ended
+            with host_wait():
+                self._done[slot].synchronize()   # the slot's last copy ended
         staged = []
         for i, a in enumerate(arrays):
             buf = self._staging("up", slot, i, a.shape,

@@ -60,7 +60,7 @@ from ..io import tiff as tiff_io
 from ..io.raw import RawStrip
 from ..io.streaming import HostDeviceCopies, window
 from ..parallel.mesh import LINE_AXIS, LineMesh, resolve_mesh
-from ..utils.logging import device_profile, olog, stage, to_host
+from ..utils.logging import device_profile, olog, stage, to_device, to_host
 from .device_pipeline import (
     MssAlign,
     ScenePipeline,
@@ -92,7 +92,7 @@ def band_rows(strip: RawStrip, a: int, b: int) -> np.ndarray:
 
 def _upload(a: np.ndarray, dev) -> torch.Tensor:
     """A host copy of ``a`` (a memory-map view is read-only) on ``dev``."""
-    return torch.from_numpy(np.array(a)).to(dev)
+    return to_device(np.array(a), dev)
 
 
 class _FileRows(StripRows):

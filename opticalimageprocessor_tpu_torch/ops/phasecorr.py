@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..utils.logging import count, span
+from ..utils.logging import count, span, to_device
 from .resample import _X4_BASE, _X4_W
 
 _EPS64_F32 = float(np.float32(np.finfo(np.float64).eps))
@@ -128,9 +128,8 @@ def filter_response(m: int, factor: int, device) -> torch.Tensor:
     ``device``, uploaded once per (shape, device); callers must not
     modify it."""
     re, im = _upsample_filter_response(m, factor)
-    return torch.complex(
-        torch.from_numpy(re), torch.from_numpy(im)
-    ).to(device)
+    return to_device(torch.complex(torch.from_numpy(re),
+                                   torch.from_numpy(im)), device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -138,7 +137,7 @@ def eval_consts(n: int, keep: int, win: int, rows_axis: bool, device):
     """:func:`_eval_consts` as float32 tensors on ``device``, uploaded once
     per (shape, device); callers must not modify them."""
     c, s = _eval_consts(n, keep, win, rows_axis)
-    return torch.from_numpy(c).to(device), torch.from_numpy(s).to(device)
+    return to_device(c, device), to_device(s, device)
 
 
 def upsampled_band_spectrum(band: torch.Tensor, factor: int = 4):

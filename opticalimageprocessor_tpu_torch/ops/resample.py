@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..constants import IBPA_MIN_PROCESSLINES
+from ..utils.logging import to_device
 from .rrc import _rrc_plain
 
 ROW_OFF_BOUND_FAST = 6
@@ -122,8 +123,8 @@ def _resize_axis(x: torch.Tensor, axis: int, dn: int) -> torch.Tensor:
     shape[axis % x.dim()] = dn
 
     def term(j):
-        idx = torch.from_numpy(taps[:, j]).to(x.device)
-        wj = torch.from_numpy(np.ascontiguousarray(w[:, j])).to(x.device)
+        idx = to_device(taps[:, j], x.device)
+        wj = to_device(np.ascontiguousarray(w[:, j]), x.device)
         return x.index_select(axis, idx) * wj.reshape(shape)
 
     return ((term(0) + term(1)) + term(2)) + term(3)
@@ -943,7 +944,7 @@ def _section_device_args(src: torch.Tensor, plan: RemapPlan, first: int,
     cache = plan.cuda_cache
 
     def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return to_device(np.ascontiguousarray(a), dev)
 
     if dev not in cache:
         cache[dev] = (up(plan.col_tap0.astype(np.int32)),
@@ -963,9 +964,9 @@ def prepare_remap_section(src: torch.Tensor, plan: RemapPlan, first: int = 0,
                           count: int | None = None, origin: int = 0) -> None:
     """Make the device copies and the launch geometry of a coming
     :func:`remap_section_u16` call on the CUDA section ``src`` now (nothing
-    on the CPU).  Each is an upload from pageable memory, which waits for
-    the stream to drain: a loop of calls prepared first launches them back
-    to back."""
+    on the CPU).  Each is an upload from pageable memory
+    (``utils.logging.to_device``), which waits for the stream to drain: a
+    loop of calls prepared first launches them back to back."""
     if src.device.type == "cpu":
         return
     count = src.shape[0] - first if count is None else count

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.logging import to_device
 from .phasecorr_cuda import kx_major
 
 # kernel (i) is built for this prime (csrc/row_fft.cu): band tiles of P
@@ -254,7 +255,7 @@ def _band_rows_plain(x: torch.Tensor, p: int = P) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(device) -> torch.Tensor:
-    return torch.from_numpy(kernel_tables()).to(device)
+    return to_device(kernel_tables(), device)
 
 
 _CONSTS = kernel_consts()

@@ -10,7 +10,10 @@ torch.profiler in place of the JAX profiler: :func:`device_profile` writes
 a torch.profiler trace, and while a profiler records, every stage and
 every :func:`span` of the scene path is a ``record_function`` range timed
 on the device and kept for :func:`span_report`, beside the counters of
-:func:`count`.  With no profiler recording a span is one flag check.  The
+:func:`count`; every place where the host waits for the card is one
+:data:`SYNC_SPAN` span (:class:`host_wait`, :func:`to_host`,
+:func:`to_device`), listed by site by :func:`wait_report`.  With no
+profiler recording a span is one flag check.  The
 logger keeps the reference package's name, ``oiptpu``, so both packages in
 one process share one file handler and write the same lines.
 """
@@ -138,6 +141,7 @@ def reset_stage_report() -> None:
 # ---- spans and counters (on only while a torch profiler records)
 
 SCENE_SPAN = "oip.scene"
+SYNC_SPAN = "oip.sync"
 
 
 @dataclass
@@ -261,25 +265,88 @@ def count(name: str, n: int = 1) -> None:
                                 _SCENES[0], n=n, counter=True))
 
 
+class host_wait(span):
+    """A :data:`SYNC_SPAN` span around a place where the host waits for a
+    card: a read back, an upload from pageable memory, an event's
+    ``synchronize``, a torch op that synchronizes inside.  It runs on the
+    host clock (no CUDA event pair: the wait is the host's), so its extent
+    in the trace is the wait.  ``device`` names the device of a wait that
+    only a card makes (an upload, an op's hidden sync): for any other
+    device it opens no span; None, the default, always opens one.
+
+    While a profiler records it also lifts ``torch.cuda``'s sync debug
+    mode for its own wait, so that a traced forward under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises at any wait outside
+    one."""
+
+    __slots__ = ("_waits_on", "_debug")
+
+    def __init__(self, device=None):
+        super().__init__(SYNC_SPAN, "cpu")
+        self._waits_on = device
+        self._debug = 0
+
+    def __enter__(self):
+        if not tracing():
+            return self
+        torch = sys.modules["torch"]
+        if (self._waits_on is not None
+                and torch.device(self._waits_on).type != "cuda"):
+            return self
+        super().__enter__()
+        if torch.cuda.is_initialized():
+            self._debug = torch.cuda.get_sync_debug_mode()
+            if self._debug:
+                torch.cuda.set_sync_debug_mode(0)
+        return self
+
+    def __exit__(self, *exc):
+        if self._debug:
+            sys.modules["torch"].cuda.set_sync_debug_mode(self._debug)
+            self._debug = 0
+        return super().__exit__(*exc)
+
+
+def _read(x):
+    return x.item() if x.dim() == 0 else x.cpu()
+
+
 def to_host(x):
     """``x`` read back to the host, counted as one ``host_syncs`` (from a
-    device, the read waits for the work queued before it): a 0-d tensor's
-    number (``item()``, what ``float()`` reads), another tensor's CPU
-    copy; anything else as it is.  Every blocking read of the scene path
-    goes through here."""
+    device, the read waits for the work queued before it) and timed as a
+    :class:`host_wait`: a 0-d tensor's number (``item()``, what
+    ``float()`` reads), another tensor's CPU copy; anything else as it
+    is.  Every blocking read of the scene path goes through here."""
     torch = sys.modules.get("torch")
     if torch is None or not isinstance(x, torch.Tensor):
         return x
+    if not tracing():
+        return _read(x)
     count("host_syncs")
-    return x.item() if x.dim() == 0 else x.cpu()
+    with host_wait():
+        return _read(x)
+
+
+def to_device(array, device):
+    """``array`` (a host tensor or a numpy array, shared, not copied, as
+    ``torch.as_tensor`` shares it) copied to ``device`` by ``.to(device)``:
+    from pageable memory a blocking upload, which on a card waits for the
+    stream to drain first.  A :class:`host_wait` for a host-to-card copy
+    only.  Every upload of the scene forwards goes through here."""
+    torch = sys.modules["torch"]
+    t = torch.as_tensor(array)
+    if not tracing() or t.device.type != "cpu":
+        return t.to(device)
+    with host_wait(device):
+        return t.to(device)
 
 
 def span_report() -> dict[str, dict]:
     """The spans and counters recorded since :func:`reset_span_report`,
     per name: ``calls``, ``parent`` (the first record's), and for a span
     ``device_ms`` (its CUDA event pairs' total; the host clock's where it
-    ran on the host) and ``host_ms``, for a counter ``count`` (the sum of
-    its increments).  Waits for each span's end event."""
+    ran on the host), for a counter ``count`` (the sum of its
+    increments).  Waits for each span's end event."""
     out: dict[str, dict] = {}
     for r in _RECORDS:
         e = out.setdefault(r.name, {"calls": 0, "parent": r.parent})
@@ -287,14 +354,25 @@ def span_report() -> dict[str, dict]:
         if r.counter:
             e["count"] = e.get("count", 0) + r.n
             continue
-        host = (r.t1_ns - r.t0_ns) / 1e6
         if r.events is None:
-            dev = host
+            dev = (r.t1_ns - r.t0_ns) / 1e6
         else:
             r.events[1].synchronize()
             dev = r.events[0].elapsed_time(r.events[1])
         e["device_ms"] = e.get("device_ms", 0.0) + dev
-        e["host_ms"] = e.get("host_ms", 0.0) + host
+    return out
+
+
+def wait_report() -> dict[str | None, dict]:
+    """The :data:`SYNC_SPAN` spans recorded since :func:`reset_span_report`
+    by site, the span that encloses each (None outside any): ``calls``
+    and ``host_ms``, the host clock's total."""
+    out: dict[str | None, dict] = {}
+    for r in _RECORDS:
+        if r.name == SYNC_SPAN and not r.counter:
+            e = out.setdefault(r.parent, {"calls": 0, "host_ms": 0.0})
+            e["calls"] += 1
+            e["host_ms"] += (r.t1_ns - r.t0_ns) / 1e6
     return out
 
 

@@ -1,0 +1,5 @@
+"""host_waits.dual: the port's ``oip.sync`` spans a scene in
+``resident_dual_160k`` (reads back, uploads from pageable memory, ops that
+synchronize inside), from its span report over the traced sub-window."""
+
+from portbench.waits import waits_a_scene as read  # noqa: F401
